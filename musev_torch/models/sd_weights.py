@@ -1,0 +1,233 @@
+"""Reference torch key maps and the JAX-param -> torch-layout export.
+
+A copy of the key-map part of ``musev_tpu/models/sd_weights.py`` (the port
+imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map`` and
+``clip_text_key_map`` yield ``(torch_key, tree_path, kind)`` triples, and
+``export_state_dict`` reads a JAX-layout param tree (nested dicts/lists of
+arrays) through a map into torch-layout numpy arrays: HWIO -> OIHW for
+convolutions, (in, out) -> (out, in) for linears, (kT, 1, I, O) ->
+(O, I, kT, 1, 1) for the temporal conv. Numpy only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+
+Path = Tuple
+KeyEntry = Tuple[str, Path, str]  # torch key prefix (no .weight/.bias), path, kind
+
+
+def _attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+    yield f"{tk}.to_q", (*path, "to_q"), "linear"
+    yield f"{tk}.to_k", (*path, "to_k"), "linear"
+    yield f"{tk}.to_v", (*path, "to_v"), "linear"
+    yield f"{tk}.to_out.0", (*path, "to_out"), "linear"
+
+
+def _tf_block_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+    yield f"{tk}.norm1", (*path, "norm1"), "norm"
+    yield from _attn_entries(f"{tk}.attn1", (*path, "attn1"))
+    yield f"{tk}.norm2", (*path, "norm2"), "norm"
+    yield from _attn_entries(f"{tk}.attn2", (*path, "attn2"))
+    yield f"{tk}.norm3", (*path, "norm3"), "norm"
+    yield f"{tk}.ff.net.0.proj", (*path, "ff", "proj_in"), "linear"
+    yield f"{tk}.ff.net.2", (*path, "ff", "proj_out"), "linear"
+
+
+def _spatial_attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+    yield f"{tk}.norm", (*path, "norm"), "norm"
+    yield f"{tk}.proj_in", (*path, "proj_in"), "conv2d"
+    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"))
+    yield f"{tk}.proj_out", (*path, "proj_out"), "conv2d"
+
+
+def _temporal_attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+    yield f"{tk}.norm", (*path, "norm"), "norm"
+    yield f"{tk}.proj_in", (*path, "proj_in"), "linear"
+    yield f"{tk}.frame_emb_proj", (*path, "femb_proj"), "linear"
+    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"))
+    yield f"{tk}.proj_out", (*path, "proj_out"), "linear"
+    yield f"{tk}.temporal_weight", (*path, "temporal_weight"), "raw"
+
+
+def _temporal_conv_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+    # conv1 = (GN, SiLU, Conv) -> .0/.2; conv2..4 = (GN, SiLU, Dropout, Conv)
+    # -> .0/.3 (reference resnet.py:56-78)
+    for i in range(1, 5):
+        conv_idx = 2 if i == 1 else 3
+        yield f"{tk}.conv{i}.0", (*path, f"conv{i}", "norm"), "norm"
+        yield f"{tk}.conv{i}.{conv_idx}", (*path, f"conv{i}", "conv"), "conv3d_t"
+    yield f"{tk}.temporal_weight", (*path, "temporal_weight"), "raw"
+
+
+def _resnet_entries(tk: str, path: Path, temb: bool = True) -> Iterator[KeyEntry]:
+    yield f"{tk}.norm1", (*path, "norm1"), "norm"
+    yield f"{tk}.conv1", (*path, "conv1"), "conv2d"
+    if temb:
+        yield f"{tk}.time_emb_proj", (*path, "time_emb_proj"), "linear"
+    yield f"{tk}.norm2", (*path, "norm2"), "norm"
+    yield f"{tk}.conv2", (*path, "conv2"), "conv2d"
+    yield f"{tk}.conv_shortcut", (*path, "conv_shortcut"), "conv2d"
+
+
+def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
+    """Keys of the UNet3D sites this port builds (no ReferenceNet fusion or
+    IP-Adapter projections)."""
+    yield "conv_in", ("conv_in",), "conv2d"
+    yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
+    yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
+    if cfg.temporal_transformer:
+        yield "frame_embedding.linear_1", ("frame_embedding", "linear_1"), "linear"
+        yield "frame_embedding.linear_2", ("frame_embedding", "linear_2"), "linear"
+    if cfg.need_transformer_in and cfg.temporal_transformer:
+        yield from _temporal_attn_entries("transformer_in", ("transformer_in",))
+    for i, btype in enumerate(cfg.down_block_types):
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            path = ("down_blocks", i, "layers", j)
+            yield from _resnet_entries(f"{base}.resnets.{j}", (*path, "resnet"))
+            if cfg.temporal_conv:
+                yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
+            if "CrossAttn" in btype:
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+            if cfg.temporal_transformer:
+                yield from _temporal_attn_entries(
+                    f"{base}.temp_attentions.{j}", (*path, "temp_attn")
+                )
+        if i < len(cfg.down_block_types) - 1:
+            yield (f"{base}.downsamplers.0.conv", ("down_blocks", i, "downsample", "conv"),
+                   "conv2d")
+    yield from _resnet_entries("mid_block.resnets.0", ("mid_block", "resnet_0"))
+    yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
+    if cfg.temporal_conv:
+        yield from _temporal_conv_entries("mid_block.temp_convs.0", ("mid_block", "temp_conv_0"))
+        yield from _temporal_conv_entries("mid_block.temp_convs.1", ("mid_block", "temp_conv_1"))
+    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"))
+    if cfg.temporal_transformer:
+        yield from _temporal_attn_entries(
+            "mid_block.temp_attentions.0", ("mid_block", "temp_attn")
+        )
+    for i, btype in enumerate(cfg.up_block_types):
+        base = f"up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            path = ("up_blocks", i, "layers", j)
+            yield from _resnet_entries(f"{base}.resnets.{j}", (*path, "resnet"))
+            if cfg.temporal_conv:
+                yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
+            if "CrossAttn" in btype:
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+            if cfg.temporal_transformer:
+                yield from _temporal_attn_entries(
+                    f"{base}.temp_attentions.{j}", (*path, "temp_attn")
+                )
+        if i < len(cfg.up_block_types) - 1:
+            yield (f"{base}.upsamplers.0.conv", ("up_blocks", i, "upsample", "conv"), "conv2d")
+    yield "conv_norm_out", ("conv_norm_out",), "norm"
+    yield "conv_out", ("conv_out",), "conv2d"
+
+
+def vae_key_map(cfg) -> Iterator[KeyEntry]:
+    def attn(tk, path):
+        yield f"{tk}.group_norm", (*path, "norm"), "norm"
+        yield f"{tk}.to_q", (*path, "to_q"), "linear"
+        yield f"{tk}.to_k", (*path, "to_k"), "linear"
+        yield f"{tk}.to_v", (*path, "to_v"), "linear"
+        yield f"{tk}.to_out.0", (*path, "to_out"), "linear"
+
+    n = len(cfg.block_out_channels)
+    yield "encoder.conv_in", ("encoder", "conv_in"), "conv2d"
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            yield from _resnet_entries(
+                f"encoder.down_blocks.{i}.resnets.{j}", ("encoder", "down", i, "layers", j),
+                temb=False,
+            )
+        if i < n - 1:
+            yield (f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                   ("encoder", "down", i, "downsample"), "conv2d")
+    for side in ("encoder", "decoder"):
+        if side == "decoder":
+            yield "quant_conv", ("quant_conv",), "conv2d"
+            yield "post_quant_conv", ("post_quant_conv",), "conv2d"
+            yield "decoder.conv_in", ("decoder", "conv_in"), "conv2d"
+        yield from _resnet_entries(f"{side}.mid_block.resnets.0", (side, "mid", "resnet_0"),
+                                   temb=False)
+        yield from attn(f"{side}.mid_block.attentions.0", (side, "mid", "attn"))
+        yield from _resnet_entries(f"{side}.mid_block.resnets.1", (side, "mid", "resnet_1"),
+                                   temb=False)
+        if side == "encoder":
+            yield "encoder.conv_norm_out", ("encoder", "norm_out"), "norm"
+            yield "encoder.conv_out", ("encoder", "conv_out"), "conv2d"
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            yield from _resnet_entries(
+                f"decoder.up_blocks.{i}.resnets.{j}", ("decoder", "up", i, "layers", j),
+                temb=False,
+            )
+        if i < n - 1:
+            yield (f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                   ("decoder", "up", i, "upsample"), "conv2d")
+    yield "decoder.conv_norm_out", ("decoder", "norm_out"), "norm"
+    yield "decoder.conv_out", ("decoder", "conv_out"), "conv2d"
+
+
+def clip_text_key_map(cfg) -> Iterator[KeyEntry]:
+    yield "text_model.embeddings.token_embedding", ("token_embedding",), "embedding"
+    yield "text_model.embeddings.position_embedding", ("position_embedding",), "embedding"
+    for i in range(cfg.num_layers):
+        pre = f"text_model.encoder.layers.{i}"
+        path = ("layers", i)
+        yield f"{pre}.layer_norm1", (*path, "layer_norm1"), "norm"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            yield f"{pre}.self_attn.{n}", (*path, n), "linear"
+        yield f"{pre}.layer_norm2", (*path, "layer_norm2"), "norm"
+        yield f"{pre}.mlp.fc1", (*path, "fc1"), "linear"
+        yield f"{pre}.mlp.fc2", (*path, "fc2"), "linear"
+    yield "text_model.final_layer_norm", ("final_layer_norm",), "norm"
+
+
+def _get(tree, path):
+    for k in path:
+        if isinstance(tree, (list, tuple)):
+            tree = tree[k]
+        else:
+            if k not in tree:
+                return None
+            tree = tree[k]
+    return tree
+
+
+def export_state_dict(key_map, params) -> Dict[str, np.ndarray]:
+    """Read a JAX-layout param tree through a key map into torch-layout
+    arrays; sites absent from the tree are skipped."""
+    out: Dict[str, np.ndarray] = {}
+    c = np.ascontiguousarray
+    for tk, path, kind in key_map:
+        if kind in ("raw", "embedding"):
+            node = _get(params, path[:-1])
+            if node is None or path[-1] not in node:
+                continue
+            out[tk if kind == "raw" else f"{tk}.weight"] = c(np.asarray(node[path[-1]]))
+            continue
+        node = _get(params, path)
+        if node is None or ("kernel" not in node and "scale" not in node):
+            continue
+        if kind == "norm":
+            out[f"{tk}.weight"] = c(np.asarray(node["scale"]))
+            out[f"{tk}.bias"] = c(np.asarray(node["bias"]))
+            continue
+        kern = np.asarray(node["kernel"])
+        if kind == "linear":
+            out[f"{tk}.weight"] = c(kern.T)
+        elif kind == "conv2d":
+            out[f"{tk}.weight"] = c(kern.transpose(3, 2, 0, 1))
+        elif kind == "conv3d_t":
+            out[f"{tk}.weight"] = c(kern.transpose(3, 2, 0, 1)[:, :, :, :, None])
+        else:
+            raise ValueError(kind)
+        if "bias" in node:
+            out[f"{tk}.bias"] = c(np.asarray(node["bias"]))
+    return out
+

@@ -1,0 +1,344 @@
+"""The MuseV 3D UNet (counterpart of ``musev_tpu/models/unet3d.py``).
+
+Behavioral reference: musev/models/unet_3d_condition.py (structure :212-610,
+forward :773-1280) and unet_3d_blocks.py. Submodules carry the reference's
+torch key names. Frames are folded into the batch for spatial ops; CFG runs
+as ``[uncond; cond]`` batch halves.
+
+AdaIN: the reference enables ``need_adain_temporal_cond`` for every preset but
+its ``batch_adain_conditioned_tensor`` discards the result for 4-D inputs
+(data_util.py:600-601), so block-level AdaIN is a no-op in the released
+models; ``adain_fix=False`` (default) reproduces that.
+
+``UNet3DConfig`` has the JAX config's fields for what is ported. Not ported
+yet, and absent from the config: ReferenceNet block-emb fusion, the
+IP-Adapter and FaceID cross-attention branches, the spatial position
+embedding and the sparse-causal temporal mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.adain import adain_to_condition_frames
+from ..ops.index_ops import frame_mask, splice_with_index
+from .common import Conv2d, GroupNorm
+from .embeddings import TimestepEmbedding, sinusoidal_embedding
+from .unet_blocks import (
+    Downsample,
+    ResnetBlock,
+    SpatialTransformer,
+    TemporalConvLayer,
+    TemporalTransformer,
+    Upsample,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet3DConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "DownBlock3D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+    )
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    attention_heads: int = 8
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    temporal_conv: bool = True
+    temporal_transformer: bool = True
+    need_transformer_in: bool = True
+    reference_attn: bool = True
+    need_adain_temporal_cond: bool = True
+    adain_fix: bool = False
+    keep_vision_condition: bool = False
+    use_anivv1_cfg: bool = False
+    resnet_skip_time_act: bool = False
+    keep_content_condition: bool = False
+
+    @property
+    def temb_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    @property
+    def femb_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def musev_config(**overrides) -> UNet3DConfig:
+    """The ``musev`` preset (unet_loader.py:232-242)."""
+    return UNet3DConfig(**overrides)
+
+
+def _is_cross(name: str) -> bool:
+    return "CrossAttn" in name
+
+
+class _Block(nn.Module):
+    """One down/up/mid block: ModuleLists under the reference's key names."""
+
+    def __init__(self, cfg: UNet3DConfig, in_cs: Sequence[int], out_c: int, cross: bool,
+                 temporal_attn: bool):
+        super().__init__()
+        g = cfg.norm_num_groups
+        self.resnets = nn.ModuleList([
+            ResnetBlock(c, out_c, cfg.temb_dim, g, cfg.norm_eps, cfg.resnet_skip_time_act)
+            for c in in_cs
+        ])
+        n = len(in_cs)
+        if cfg.temporal_conv:
+            self.temp_convs = nn.ModuleList([TemporalConvLayer(out_c, g) for _ in range(n)])
+        n_attn = n if cross else 0
+        if n_attn:
+            self.attentions = nn.ModuleList([
+                SpatialTransformer(out_c, cfg.cross_attention_dim, cfg.attention_heads, g)
+                for _ in range(n_attn)
+            ])
+        if cross and temporal_attn:
+            self.temp_attentions = nn.ModuleList([
+                TemporalTransformer(out_c, cfg.attention_heads, cfg.femb_dim, g)
+                for _ in range(n_attn)
+            ])
+
+
+class UNet3D(nn.Module):
+    def __init__(self, cfg: UNet3DConfig):
+        super().__init__()
+        self.cfg = cfg
+        chs = cfg.block_out_channels
+        ch0 = chs[0]
+        g = cfg.norm_num_groups
+        self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.time_embedding = TimestepEmbedding(ch0, cfg.temb_dim)
+        if cfg.temporal_transformer:
+            self.frame_embedding = TimestepEmbedding(ch0, cfg.femb_dim)
+        if cfg.need_transformer_in and cfg.temporal_transformer:
+            self.transformer_in = TemporalTransformer(ch0, cfg.attention_heads, cfg.femb_dim, g)
+
+        skip_channels = [ch0]
+        self.down_blocks = nn.ModuleList()
+        out_c = ch0
+        for i, btype in enumerate(cfg.down_block_types):
+            in_c, out_c = out_c, chs[i]
+            ins = [in_c] + [out_c] * (cfg.layers_per_block - 1)
+            block = _Block(cfg, ins, out_c, _is_cross(btype), cfg.temporal_transformer)
+            skip_channels += [out_c] * cfg.layers_per_block
+            if i < len(chs) - 1:
+                block.downsamplers = nn.ModuleList([Downsample(out_c)])
+                skip_channels.append(out_c)
+            self.down_blocks.append(block)
+
+        mid_c = chs[-1]
+        self.mid_block = _Block(cfg, [mid_c, mid_c], mid_c, False, False)
+        self.mid_block.attentions = nn.ModuleList([
+            SpatialTransformer(mid_c, cfg.cross_attention_dim, cfg.attention_heads, g)
+        ])
+        if cfg.temporal_transformer:
+            self.mid_block.temp_attentions = nn.ModuleList([
+                TemporalTransformer(mid_c, cfg.attention_heads, cfg.femb_dim, g)
+            ])
+
+        self.up_blocks = nn.ModuleList()
+        rev = list(reversed(chs))
+        prev_out = rev[0]
+        for i, btype in enumerate(cfg.up_block_types):
+            out_c = rev[i]
+            ins = []
+            for j in range(cfg.layers_per_block + 1):
+                ins.append((prev_out if j == 0 else out_c) + skip_channels.pop())
+            block = _Block(cfg, ins, out_c, _is_cross(btype), cfg.temporal_transformer)
+            if i < len(cfg.up_block_types) - 1:
+                block.upsamplers = nn.ModuleList([Upsample(out_c)])
+            self.up_blocks.append(block)
+            prev_out = out_c
+
+        self.conv_norm_out = GroupNorm(g, ch0, cfg.norm_eps)
+        self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+
+
+def prepare_unet_inputs(
+    unet: UNet3D,
+    sample: torch.Tensor,
+    timestep,
+    text_emb: torch.Tensor,
+    *,
+    motion_speed: float,
+    use_temporal: bool,
+    cond_index: Optional[Sequence[int]],
+):
+    """Returns ``(temb, femb, text_ctx, cond_mask)``: temb and text_ctx are
+    aligned to the (B*T, ...) frame rows of ``sample``; femb is (B, T, D)."""
+    cfg = unet.cfg
+    b, num_frames = sample.shape[:2]
+    dtype, device = sample.dtype, sample.device
+    ch0 = cfg.block_out_channels[0]
+
+    ts = torch.as_tensor(timestep, dtype=torch.float32, device=device).reshape(-1)
+    ts = ts.expand(b)
+    temb = unet.time_embedding(sinusoidal_embedding(ts, ch0).to(dtype))
+    if cfg.use_anivv1_cfg:
+        temb = F.silu(temb)
+    temb = temb.repeat_interleave(num_frames, dim=0)
+    if cfg.keep_vision_condition and use_temporal and num_frames > 1 and cond_index is not None:
+        keep = frame_mask(num_frames, cond_index, dtype=temb.dtype, device=device)
+        temb = temb * keep.repeat(b)[:, None]
+
+    femb = None
+    if cfg.temporal_transformer and use_temporal:
+        fidx = torch.arange(num_frames, dtype=torch.float32, device=device)
+        if cfg.use_anivv1_cfg:
+            fidx = torch.floor(fidx * motion_speed)
+        femb = sinusoidal_embedding(fidx, ch0)[None].expand(b, num_frames, -1)
+        femb = unet.frame_embedding(femb.to(dtype))
+        if cfg.use_anivv1_cfg:
+            femb = F.silu(femb)
+
+    if text_emb.ndim == 3:
+        text_ctx = text_emb.repeat_interleave(num_frames, dim=0)
+    else:
+        text_ctx = text_emb.reshape(-1, *text_emb.shape[2:])
+
+    cond_mask = None
+    if cfg.keep_content_condition and use_temporal and num_frames > 1 and cond_index is not None:
+        cond_mask = frame_mask(num_frames, cond_index, device=device)
+    return temb, femb, text_ctx, cond_mask
+
+
+def unet3d_core(
+    unet: UNet3D,
+    x: torch.Tensor,
+    temb: torch.Tensor,
+    femb: Optional[torch.Tensor],
+    text_ctx: torch.Tensor,
+    *,
+    num_frames: int,
+    use_temporal: bool,
+    do_cfg: bool,
+    gen_index: Optional[Sequence[int]],
+    cond_index: Optional[Sequence[int]],
+    cond_mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The UNet block loop over frame rows ``x (B*T, H, W, C)``."""
+    cfg = unet.cfg
+    spatial_kw: Dict[str, Any] = dict(
+        num_frames=num_frames,
+        cond_index=cond_index if use_temporal else None,
+        do_cfg=do_cfg,
+        reference_attn=cfg.reference_attn,
+    )
+
+    def temporal_conv(mod, x):
+        return mod(x, num_frames=num_frames, cond_mask=cond_mask) if use_temporal else x
+
+    def temporal_attn(mod, x):
+        if not use_temporal:
+            return x
+        return mod(x, femb, num_frames=num_frames, cond_mask=cond_mask)
+
+    def adain(x):
+        if (cfg.need_adain_temporal_cond and cfg.adain_fix and num_frames > 1
+                and gen_index is not None and cond_index is not None):
+            bt, h, w, c = x.shape
+            v = x.reshape(bt // num_frames, num_frames, h, w, c)
+            return adain_to_condition_frames(v, gen_index, cond_index).reshape(bt, h, w, c)
+        return x
+
+    def layer(block, j, x):
+        x = block.resnets[j](x, temb)
+        if hasattr(block, "temp_convs"):
+            x = temporal_conv(block.temp_convs[j], x)
+        if hasattr(block, "attentions"):
+            x = block.attentions[j](x, text_ctx, **spatial_kw)
+        if hasattr(block, "temp_attentions"):
+            x = temporal_attn(block.temp_attentions[j], x)
+        return adain(x)
+
+    x = unet.conv_in(x)
+    if hasattr(unet, "transformer_in"):
+        x = temporal_attn(unet.transformer_in, x)
+
+    skips = [x]
+    for block in unet.down_blocks:
+        for j in range(len(block.resnets)):
+            x = layer(block, j, x)
+            skips.append(x)
+        if hasattr(block, "downsamplers"):
+            x = adain(block.downsamplers[0](x))
+            skips.append(x)
+
+    mid = unet.mid_block
+    x = mid.resnets[0](x, temb)
+    if hasattr(mid, "temp_convs"):
+        x = temporal_conv(mid.temp_convs[0], x)
+    x = mid.attentions[0](x, text_ctx, **spatial_kw)
+    if hasattr(mid, "temp_attentions"):
+        x = temporal_attn(mid.temp_attentions[0], x)
+    x = mid.resnets[1](x, temb)
+    if hasattr(mid, "temp_convs"):
+        x = temporal_conv(mid.temp_convs[1], x)
+    x = adain(x)
+
+    for block in unet.up_blocks:
+        for j in range(len(block.resnets)):
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = layer(block, j, x)
+        if hasattr(block, "upsamplers"):
+            out_hw = skips[-1].shape[1:3] if skips else None
+            x = block.upsamplers[0](x, out_hw=out_hw)
+
+    x = F.silu(unet.conv_norm_out(x))
+    return unet.conv_out(x)
+
+
+def unet3d_apply(
+    unet: UNet3D,
+    sample: torch.Tensor,
+    timestep,
+    text_emb: torch.Tensor,
+    *,
+    condition_latents: Optional[torch.Tensor] = None,
+    gen_index: Optional[Sequence[int]] = None,
+    cond_index: Optional[Sequence[int]] = None,
+    do_cfg: bool = False,
+    motion_speed: float = 8.0,
+    skip_temporal: bool = False,
+) -> torch.Tensor:
+    """Predict noise for a window of frames.
+
+    sample (B, T_gen, H, W, C) noisy latents; timestep scalar or (B,);
+    text_emb (B, S, D) or (B, T, S, D); condition_latents (B, n_vc, H, W, C)
+    spliced in at ``cond_index``. Returns (B, T_total, H, W, C) over the
+    spliced video (condition frames included).
+    """
+    if condition_latents is not None:
+        if gen_index is None or cond_index is None:
+            raise ValueError("condition_latents need gen_index and cond_index")
+        sample = splice_with_index(condition_latents, cond_index, sample, gen_index)
+    b, num_frames, h0, w0, _ = sample.shape
+    use_temporal = not skip_temporal
+    temb, femb, text_ctx, cond_mask = prepare_unet_inputs(
+        unet, sample, timestep, text_emb, motion_speed=motion_speed,
+        use_temporal=use_temporal, cond_index=cond_index,
+    )
+    x = unet3d_core(
+        unet, sample.reshape(b * num_frames, h0, w0, -1), temb, femb, text_ctx,
+        num_frames=num_frames, use_temporal=use_temporal, do_cfg=do_cfg,
+        gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask,
+    )
+    return x.reshape(b, num_frames, h0, w0, -1)

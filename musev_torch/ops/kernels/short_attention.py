@@ -1,0 +1,118 @@
+"""Packed short-sequence self-attention: the CUDA kernel and its plain version.
+
+The kernel (``csrc/short_attention.cu``) replaces the Pallas TPU kernel
+``_kernel`` behind ``short_attention_packed``
+(``musev_tpu/ops/pallas/short_attention.py``): multi-head self-attention over
+packed ``(N, T, C)`` rows with T <= 64, the temporal attention of every
+temporal transformer. q/k/v may be the strided column views of a fused QKV
+projection (row stride 3C); no copy is made.
+
+``short_attention_packed`` takes CPU tensors to the plain version and CUDA
+tensors to the kernel; on CUDA it launches or raises, never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+MAX_SHORT_SEQ = 64
+MAX_HEAD_DIM = 256
+
+
+def short_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_heads: int,
+    scale: Optional[float] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Heads-split softmax attention over (N, T, C) with fp32 logits.
+
+    Keys at positions >= ``kv_len`` are masked; the outputs of query rows past
+    ``kv_len`` are computed over the valid keys and left to the caller.
+    """
+    n, t, c = q.shape
+    d = c // n_heads
+    if scale is None:
+        scale = d**-0.5
+    qh, kh, vh = (x.reshape(n, t, n_heads, d).float() for x in (q, k, v))
+    logits = torch.einsum("nqhd,nkhd->nhqk", qh, kh) * scale
+    if kv_len is not None and kv_len < t:
+        logits[..., kv_len:] = float("-inf")
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("nhqk,nkhd->nqhd", weights, vh)
+    return out.reshape(n, t, c).to(q.dtype)
+
+
+def short_attention_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_heads: int,
+    scale: Optional[float] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Self-attention over packed (N, T, C) rows, T <= 64; returns contiguous
+    (N, T, C). ``kv_len`` counts the valid leading keys (default T)."""
+    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("short_attention_packed takes three (N, T, C) tensors of one shape")
+    if not (q.device == k.device == v.device) or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k and v must share device and dtype")
+    n, t, c = q.shape
+    if t > MAX_SHORT_SEQ:
+        raise ValueError(f"short_attention_packed is for T<={MAX_SHORT_SEQ}, got {t}")
+    if c % n_heads:
+        raise ValueError(f"C={c} not divisible by heads={n_heads}")
+    if kv_len is not None and not 1 <= kv_len <= t:
+        raise ValueError(f"kv_len={kv_len} outside [1, {t}]")
+    d = c // n_heads
+    if q.device.type == "cpu":
+        return short_attention_plain(q, k, v, n_heads, scale, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"short_attention_packed: unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"short_attention kernel takes bfloat16, got {q.dtype}")
+    if d % 2 or d > MAX_HEAD_DIM:
+        raise ValueError(f"short_attention kernel: head dim {d} unsupported")
+    ld = q.stride(1)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride() != (t * ld, ld, 1) or ld % 2 or x.data_ptr() % 4:
+            raise ValueError(
+                f"short_attention kernel: {name} strides {x.stride()} must be "
+                "(T*ld, ld, 1) with one even ld for q, k and v, 4-byte aligned"
+            )
+    if scale is None:
+        scale = d**-0.5
+    out = torch.empty((n, t, c), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.musev_short_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            n, n_heads, t, d, ld, t if kv_len is None else kv_len,
+            float(scale), stream,
+        )
+    _build.check(lib, err, "short_attention_packed")
+    short_attention_packed.launches += 1
+    return out
+
+
+short_attention_packed.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("short_attention")
+    fn = lib.musev_short_attention_bf16
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, ll, i, i, i, ll, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib

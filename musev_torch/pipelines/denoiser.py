@@ -1,0 +1,122 @@
+"""The VCPD denoise engine (counterpart of ``musev_tpu/pipelines/denoiser.py``).
+
+Each step runs all context windows and both CFG halves as ONE batched UNet
+call, then averages the window overlaps with one scatter-add divided by the
+coverage counts (reference pipeline_controlnet.py:2076-2079), combines the
+CFG halves and takes the scheduler step. The JAX package scans a compiled
+step; here the step loop is plain Python. Latents and scheduler math stay in
+float32; only the UNet input is cast to the UNet's dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models.unet3d import UNet3D, UNet3DConfig, unet3d_apply
+from ..ops.context import WindowPlan
+from ..ops.index_ops import take_frames
+from ..schedulers.euler_discrete import EulerDiscreteScheduler
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenoiseSpec:
+    """Configuration of one VCPD denoise run (the fields this path uses)."""
+
+    unet_cfg: UNet3DConfig
+    scheduler: EulerDiscreteScheduler
+    plan: WindowPlan  # or a StackedWindowPlan (per-step 'uniform' schedule)
+    guidance: np.ndarray  # (num_steps,) per-step CFG scale
+    n_vision_cond: int = 0
+    do_cfg: bool = True
+    motion_speed: float = 8.0
+    skip_temporal: bool = False
+
+
+def predict_noise(
+    unet: UNet3D,
+    spec: DenoiseSpec,
+    latents: torch.Tensor,
+    step_index: int,
+    text_uc: Optional[torch.Tensor],
+    text_c: torch.Tensor,
+    condition_latents: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One VCPD noise prediction over all windows; latents (B, T, h, w, C).
+    Returns the CFG-combined noise (B, T, h, w, C) in float32."""
+    b, t, h, w, c = latents.shape
+    plan = spec.plan
+    n_win, wlen = plan.n_windows, plan.window_size
+    windows = plan.windows[step_index] if plan.per_step else plan.windows
+    counts = plan.counts[step_index] if plan.per_step else plan.counts
+    flat_idx = windows.reshape(-1).tolist()
+    dtype = next(unet.parameters()).dtype
+
+    scaled = spec.scheduler.scale_model_input(latents, step_index)
+    win = take_frames(scaled, flat_idx).reshape(b * n_win, wlen, h, w, c)
+    reps = 2 if spec.do_cfg else 1
+    model_in = torch.cat([win] * reps, dim=0).to(dtype)
+
+    if spec.do_cfg:
+        if text_uc is None:
+            raise ValueError("do_cfg needs text_uc")
+        text = torch.cat([text_uc.repeat_interleave(n_win, 0),
+                          text_c.repeat_interleave(n_win, 0)], dim=0)
+    else:
+        text = text_c.repeat_interleave(n_win, 0)
+
+    cond = gen_index = cond_index = None
+    n_vc = spec.n_vision_cond
+    if condition_latents is not None and n_vc > 0:
+        cond = torch.cat([condition_latents.repeat_interleave(n_win, 0)] * reps, dim=0)
+        cond = cond.to(dtype)
+        cond_index = tuple(range(n_vc))
+        gen_index = tuple(range(n_vc, n_vc + wlen))
+
+    out = unet3d_apply(
+        unet, model_in, float(spec.scheduler.timesteps[step_index]), text.to(dtype),
+        condition_latents=cond, gen_index=gen_index, cond_index=cond_index,
+        do_cfg=spec.do_cfg, motion_speed=spec.motion_speed,
+        skip_temporal=spec.skip_temporal,
+    )
+    if cond is not None:
+        out = take_frames(out, gen_index)
+
+    # overlap average: scatter-add the windows, divide by coverage counts
+    out = out.float().reshape(reps, b, n_win * wlen, h, w, c)
+    idx = torch.as_tensor(flat_idx, dtype=torch.long, device=out.device)
+    buf = out.new_zeros((reps, b, t, h, w, c)).index_add_(2, idx, out)
+    cnt = torch.as_tensor(counts, dtype=torch.float32, device=out.device)
+    noise_pred = buf / cnt[None, None, :, None, None, None]
+    if spec.do_cfg:
+        g = float(spec.guidance[step_index])
+        return noise_pred[0] + g * (noise_pred[1] - noise_pred[0])
+    return noise_pred[0]
+
+
+def denoise_loop(
+    unet: UNet3D,
+    spec: DenoiseSpec,
+    latents: torch.Tensor,
+    text_uc: Optional[torch.Tensor],
+    text_c: torch.Tensor,
+    condition_latents: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Run every denoise step; returns the final float32 latents."""
+    lat = latents.float()
+    for i in range(spec.scheduler.num_inference_steps):
+        noise_pred = predict_noise(unet, spec, lat, i, text_uc, text_c, condition_latents)
+        lat, _ = spec.scheduler.step(noise_pred, i, lat)
+    return lat
+
+
+def splice_condition_frames(
+    latents: torch.Tensor, condition_latents: Optional[torch.Tensor], n_vc: int
+) -> torch.Tensor:
+    """Re-splice the clean condition frames at the head (reference :2149-2156)."""
+    if condition_latents is None or n_vc == 0:
+        return latents
+    return torch.cat([condition_latents.to(latents.dtype), latents], dim=1)

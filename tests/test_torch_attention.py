@@ -1,0 +1,129 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+Inputs come from a seeded numpy RNG and go through both packages in float32.
+The JAX side runs its Pallas kernels in interpret mode where they have one
+(``_flash_carry``, ``short_attention_packed``); ``_unroll_kernel`` has none,
+so ``ops.attention._xla_sdpa`` is its plain reference. Tolerance 2e-5
+absolute and relative: float32 softmax attention at these sizes, summed in
+another order by each framework.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from musev_tpu.ops.attention import _xla_sdpa
+from musev_tpu.ops.pallas import flash_attention as jfa
+from musev_tpu.ops.pallas.short_attention import short_attention_packed as j_short
+from musev_torch.ops import attention as tattn
+from musev_torch.ops.kernels import _build
+from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+from musev_torch.ops.kernels.short_attention import (
+    short_attention_packed,
+    short_attention_plain,
+)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(seed, q_shape, kv_shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(q_shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32))
+
+
+def _jax_carry(q, k, v, scale, part):
+    """Drive the Pallas carry kernel (interpret mode) with KV parts of
+    ``part`` rows, so sk beyond ``part`` spans several carried parts."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+
+    def to_bh(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, x.shape[1], d)
+
+    n_parts = -(-sk // part)
+    bq = -(-sq // 8) * 8
+    out = jfa._flash_carry(
+        jfa._pad_rows(to_bh(q), bq), jfa._pad_rows(to_bh(k), n_parts * part),
+        jfa._pad_rows(to_bh(v), n_parts * part), float(scale), bq, part // 2, part,
+        sk, n_qsub=1, interpret=True,
+    )
+    return np.asarray(out[:, :sq]).reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("sk", [200, 1100])  # inside one 512-row KV part / across three
+@pytest.mark.parametrize("d", [40, 64])
+def test_flash_plain_matches_pallas_carry(sk, d):
+    q, k, v = _qkv(sk + d, (1, 48, 2, d), (1, sk, 2, d))
+    scale = d**-0.5
+    want = _jax_carry(q, k, v, scale, part=512)
+    got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,h,d", [(16, 77, 4, 40), (100, 100, 2, 80), (9, 300, 1, 160)])
+def test_flash_plain_matches_xla_sdpa(sq, sk, h, d):
+    q, k, v = _qkv(sq * sk, (2, sq, h, d), (2, sk, h, d))
+    want = np.asarray(_xla_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)))  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_sdpa_bias_path_matches_xla_sdpa():
+    q, k, v = _qkv(7, (2, 12, 3, 8), (2, 12, 3, 8))
+    causal = np.triu(np.full((12, 12), -np.inf, np.float32), k=1)[None, None]
+    want = np.asarray(_xla_sdpa(*map(jnp.asarray, (q, k, v)), bias=jnp.asarray(causal)))
+    got = tattn.sdpa(*map(torch.from_numpy, (q, k, v)), bias=torch.from_numpy(causal))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n,t,c,heads,kv_len", [
+    (6, 13, 64, 8, None),
+    (4, 16, 48, 4, 13),  # T padded to 16 with 13 valid keys, as the JAX path pads
+    (3, 25, 40, 2, None),
+])
+def test_short_plain_matches_pallas(n, t, c, heads, kv_len):
+    q, k, v = _qkv(n * t * c, (n, t, c), (n, t, c))
+    want = np.asarray(j_short(*map(jnp.asarray, (q, k, v)), heads, interpret=True,
+                              kv_len=kv_len))
+    got = short_attention_packed(*map(torch.from_numpy, (q, k, v)), heads, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_short_attention_takes_fused_projection_views():
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((5, 13, 3 * 32), dtype=np.float32))
+    q, k, v = qkv.chunk(3, dim=-1)
+    want = short_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), 4)
+    torch.testing.assert_close(short_attention_packed(q, k, v, 4), want)
+
+
+def test_wrappers_count_only_kernel_launches():
+    x = torch.zeros(1, 4, 1, 8)
+    before = (flash_attention.launches, short_attention_packed.launches)
+    flash_attention(x, x, x)
+    short_attention_packed(x[:, :, 0], x[:, :, 0], x[:, :, 0], 1)
+    assert (flash_attention.launches, short_attention_packed.launches) == before
+
+
+def test_wrappers_reject_misuse():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError):
+        flash_attention(x, x[:, :, :1], x[:, :, :1])
+    with pytest.raises(ValueError):
+        short_attention_packed(torch.zeros(2, 65, 8), torch.zeros(2, 65, 8),
+                               torch.zeros(2, 65, 8), 2)
+    with pytest.raises(ValueError):
+        short_attention_packed(x[:, :, 0], x[:, :, 0], x[:, :, 0], 1, kv_len=0)
+    meta = torch.zeros(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(meta, meta, meta)
+
+
+def test_kernel_library_name_tracks_source():
+    a = _build.library_path("flash_attention")
+    b = _build.library_path("short_attention")
+    assert a.parent == b.parent == _build.BUILD_DIR
+    assert a.name.startswith("libflash_attention-") and a != b
