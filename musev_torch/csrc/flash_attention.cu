@@ -284,7 +284,6 @@ int musev_flash_attention_bf16(const void* q, const void* k, const void* v, void
   if (D <= 48) return launch<48, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
   if (D <= 64) return launch<64, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
   if (D <= 80) return launch<80, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 128) return launch<128, 4, 1, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
   if (D <= 160) return launch<160, 4, 1, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
   if (D <= 512) return launch<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
   return -1;

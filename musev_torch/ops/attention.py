@@ -2,7 +2,7 @@
 
 Counterpart of ``musev_tpu/ops/attention.py:sdpa``. One rule, no fallback:
 
-* a CPU tensor takes the plain PyTorch math (``attention_plain``);
+* a CPU tensor takes the plain PyTorch math (``flash_attention_plain``);
 * a CUDA tensor with no bias goes to the hand-written flash kernel
   (``ops.kernels.flash_attention``): spatial self-attention, both
   ReferenceOnly halves, cross-attention over the text tokens and the VAE
@@ -19,24 +19,7 @@ from typing import Optional
 
 import torch
 
-from .kernels.flash_attention import flash_attention
-
-
-def attention_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: Optional[float] = None,
-    bias: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """einsum attention with fp32 logits; ``bias`` broadcasts to (B, H, Sq, Sk)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+from .kernels.flash_attention import flash_attention, flash_attention_plain
 
 
 def sdpa(
@@ -49,4 +32,4 @@ def sdpa(
     """Attention over (B, S, H, D) tensors."""
     if bias is None:
         return flash_attention(q, k, v, scale=scale)
-    return attention_plain(q, k, v, scale=scale, bias=bias)
+    return flash_attention_plain(q, k, v, scale=scale, bias=bias)

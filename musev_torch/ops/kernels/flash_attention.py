@@ -23,12 +23,19 @@ MAX_HEAD_DIM = 512
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """softmax(q kᵀ · scale) v with fp32 logits and softmax; (B, S, H, D)."""
+    """softmax(q kᵀ · scale + bias) v in fp32 over (B, S, H, D); ``bias``
+    broadcasts to (B, H, Sq, Sk)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
 
