@@ -6,20 +6,30 @@
 Run from the root of a checkout on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 
-1. build: compile the port's CUDA kernels from ``musev_torch/csrc`` (all nvcc
-   at once) and print the card's name and power limit;
-2. kernels: at the main path's shapes (576^2, 24 frames, 12-frame windows
+1. build: compile the port's three CUDA kernels from ``musev_torch/csrc``
+   (all nvcc at once) and print the card's name and power limit;
+2. kernels: at the paths' shapes (576^2, 24 frames, 12-frame windows
    overlapping by 4, one vision-condition frame, CFG: 78 frame rows, 8
-   heads), on q/k/v laid out as the path's fused projections lay them out,
-   hold each kernel against its plain PyTorch version in bf16 (errors scaled
-   to the size of the output) and time it beside the plain version and one
-   PyTorch library call;
-3. path: ``build_models("musev")`` at full width with random bf16 weights,
-   then ``MusevPipeline.text2video`` at 576x576, 24 frames, with the T2I
-   first frame, at the default 10 video + 30 T2I steps; the kernels' launch
-   counts are zeroed just before and read just after; a second run is
+   heads), on q/k/v laid out as the paths' projections lay them out, hold
+   each kernel against its plain PyTorch version in bf16 (errors scaled to
+   the size of the output) and time it beside the plain version and one
+   PyTorch library call: ``flash_attention`` at every site, the split-merge
+   route ``flash_attention_parts`` at every site whose KV the JAX package
+   splits, ``flash_stream`` at every site of head dim <= 160, the short
+   kernel at the temporal sites;
+3. path ``musev``: ``build_models("musev")`` at full width with random bf16
+   weights, then ``MusevPipeline.text2video`` at 576x576, 24 frames, with the
+   T2I first frame, at the default 10 video + 30 T2I steps; the kernels'
+   launch counts are zeroed just before and read just after; a second run is
    profiled for device time by kernel;
-4. reference: one UNet call of a narrow config on the card against the same
+4. path ``musev_referencenet``: the same for image-to-video from a seeded
+   random 576x576 condition image, which is also the ReferenceNet and
+   IP-Adapter image, at the default 10 video steps;
+5. split: one full-width ``musev_referencenet`` UNet call under
+   ``MUSEV_FLASH_LONGKV=split`` against the same call under ``carry``,
+   beside the call's sensitivity to a 1e-3 perturbation of its input, at
+   the path's weights and, for the gate, at weights drawn at N(0, 0.01);
+6. reference: one UNet call of a narrow config on the card against the same
    weights in float32 on the CPU (the plain path).
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last the line
@@ -31,6 +41,7 @@ exits non-zero and prints no result. Details go to
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,8 +57,10 @@ PEAK_BYTES = 3.35e12
 # (site, projection, B, H, sq, sk, d) in the (B, S, H, D) layout the kernel
 # takes. The projection names the path's layout of q/k/v: "qkv" is one fused
 # self-attention product (row stride 3*H*D), "q|kv" a query projection beside
-# a fused k|v product (row stride 2*H*D: ReferenceOnly and cross-attention),
-# "q|k|v" three separate linears (the VAE mid-block).
+# a fused k|v product (row stride 2*H*D: ReferenceOnly, the ReferenceNet fuse
+# and cross-attention), "q|k|v" three separate linears (the VAE mid-block,
+# the IP-Adapter branch, CLIP vision). The first seven are on both paths, the
+# last four on the musev_referencenet path only.
 FLASH_SITES = [
     ("L0 ReferenceOnly cond half", "q|kv", 39, 8, 5184, 10368, 40),
     ("L0 self-attn / uncond half", "qkv", 39, 8, 5184, 5184, 40),
@@ -56,7 +69,12 @@ FLASH_SITES = [
     ("L2 ReferenceOnly cond half", "q|kv", 39, 8, 324, 648, 160),
     ("L3 mid ReferenceOnly cond half", "q|kv", 39, 8, 81, 162, 160),
     ("VAE mid-block (1 head, 16-frame segment)", "q|k|v", 16, 1, 5184, 5184, 512),
+    ("L0 ReferenceNet fuse", "q|kv", 78, 8, 5184, 10368, 40),
+    ("L1 ReferenceNet fuse", "q|kv", 78, 8, 1296, 2592, 80),
+    ("L0 IP-Adapter branch (4 image tokens)", "q|k|v", 78, 8, 5184, 4, 40),
+    ("CLIP vision ViT-H/14", "q|k|v", 1, 16, 257, 257, 80),
 ]
+LONGKV_HEAD = "L0 ReferenceNet fuse"  # the reported site of the long-KV designs
 # (site, N, T, C, heads): temporal rows of 6 window-rows x h x w pixels
 SHORT_SITES = [
     ("L0 temporal", 6 * 72 * 72, 13, 320, 8),
@@ -71,6 +89,8 @@ T2V_ARGS = dict(
     context_frames=12, context_overlap=4,
     video_num_inference_steps=10, num_inference_steps=30, seed=0,
 )
+VIDEO_SHAPE = (1, 25, 576, 576, 3)  # the JAX pipeline's: condition frame + 24
+KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention")
 # Kernel against plain version, both scaled to what is compared: the kernels
 # round P and the output to bf16 (8-bit mantissa, relative rounding error up
 # to 2^-9 ~ 2e-3 per element), the plain versions keep float32 throughout.
@@ -78,6 +98,7 @@ T2V_ARGS = dict(
 TOL_REL_L2 = 1e-2  # ||got - want|| / ||want||
 TOL_MAX_RATIO = 2e-2  # max |got - want| / max |want|
 PLAIN_LOGIT_BYTES = 2 << 30  # chunk the plain version's fp32 logits to 2 GiB
+SPLIT_WEIGHT_SCALE = 0.01  # weights of the split check's UNet call (see phase_split)
 
 
 def fail(msg: str) -> None:
@@ -137,11 +158,30 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_wrappers():
+    """Each kernel's wrapper by its name in the ``kernels`` line."""
+    from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_parts
+    from musev_torch.ops.kernels.flash_stream import flash_stream
+    from musev_torch.ops.kernels.short_attention import short_attention_packed
+
+    return dict(zip(KERNELS, (flash_attention, flash_attention_parts, flash_stream,
+                              short_attention_packed)))
+
+
+def zero_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
 def phase_build():
     from musev_torch.ops.kernels import _build
 
     t0 = time.time()
-    _build.build(["flash_attention", "short_attention"])
+    _build.build(["flash_attention", "short_attention", "flash_stream"])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -152,9 +192,17 @@ def phase_build():
 
 
 def phase_kernels(torch):
+    """Returns {kernel name: [row per site]}."""
     import torch.nn.functional as F
 
-    from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+    from musev_torch.ops.attention import split_part
+    from musev_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_parts,
+        flash_attention_plain,
+    )
+    from musev_torch.ops.kernels.flash_stream import MAX_HEAD_DIM as STREAM_MAX_D
+    from musev_torch.ops.kernels.flash_stream import flash_stream
     from musev_torch.ops.kernels.short_attention import (
         short_attention_packed,
         short_attention_plain,
@@ -163,29 +211,39 @@ def phase_kernels(torch):
     t0 = time.time()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flash_rows, short_rows = [], []
+    rows = {name: [] for name in KERNELS}
     for site, proj, b, h, sq, sk, d in FLASH_SITES:
         q, k, v = flash_inputs(torch, gen, proj, b, h, sq, sk, d)
         chunk = max(1, min(b, PLAIN_LOGIT_BYTES // (h * sq * sk * 4)))
-        out = flash_attention(q, k, v)
         want = flash_attention_plain(q[:chunk], k[:chunk], v[:chunk])
-        errs = compare(f"flash_attention {site} ({proj})", out[:chunk], want)
 
         def plain_all():
             for i in range(0, b, chunk):
                 flash_attention_plain(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
 
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v))
         plain_ms = cuda_ms(torch, plain_all, warmup=1, iters=3)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bms, by = bound_ms(4.0 * b * h * sq * sk * d, 2.0 * b * h * d * (2 * sq + 2 * sk))
-        flash_rows.append(dict(site=site, projection=proj, shape=[b, h, sq, sk, d], **errs,
-                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bms, bound_by=by))
-        print(f"flash_attention {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
-        del q, k, v, qt, kt, vt, out, want
+        part = split_part(sk, d)
+        runs = [("flash_attention", lambda: flash_attention(q, k, v))]
+        if part is not None:
+            runs.append(("flash_attention_parts",
+                         lambda: flash_attention_parts(q, k, v, part=part)))
+        if d <= STREAM_MAX_D:
+            runs.append(("flash_stream", lambda: flash_stream(q, k, v)))
+        for name, fn in runs:
+            errs = compare(f"{name} {site} ({proj})", fn()[:chunk], want)
+            ms = cuda_ms(torch, fn)
+            extra = dict(part=part, n_parts=-(-sk // part)) if name == "flash_attention_parts" \
+                else {}
+            rows[name].append(dict(site=site, projection=proj, shape=[b, h, sq, sk, d], **errs,
+                                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=bms, bound_by=by, **extra))
+            print(f"{name} {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
 
     for site, n, t, c, heads in SHORT_SITES:
         qkv = torch.randn(n, t, 3 * c, device=dev, generator=gen, dtype=torch.bfloat16)
@@ -198,64 +256,61 @@ def phase_kernels(torch):
         plain_ms = cuda_ms(torch, lambda: short_attention_plain(q, k, v, heads))
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bms, by = bound_ms(4.0 * n * t * t * c, 2.0 * 4 * n * t * c)
-        short_rows.append(dict(site=site, shape=[n, t, c, heads], **errs,
-                               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bms, bound_by=by))
+        rows["short_attention"].append(dict(site=site, shape=[n, t, c, heads], **errs,
+                                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=bms, bound_by=by))
         print(f"short_attention {site} (N,T,C,heads)={(n, t, c, heads)}: {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
         del qkv, q, k, v, qt, kt, vt, out, want
     print(f"phase kernels: {time.time() - t0:.1f} s")
-    return flash_rows, short_rows
+    return rows
 
 
-def phase_path(torch):
+def phase_path(torch, preset: str, args: dict, need: tuple):
+    """``text2video`` of ``preset`` at full width; fails unless the video
+    has the JAX pipeline's shape, is finite in [0, 1], and every kernel in
+    ``need`` launched. Returns (record, models)."""
     import numpy as np
 
-    from musev_torch.ops.kernels.flash_attention import flash_attention
-    from musev_torch.ops.kernels.short_attention import short_attention_packed
     from musev_torch.pipelines.loader import build_models
     from musev_torch.pipelines.pipeline import MusevPipeline
 
     t0 = time.time()
-    models = build_models("musev", seed=0)
+    models = build_models(preset, seed=0)
     torch.cuda.synchronize()
     t_build = time.time() - t0
     pipe = MusevPipeline(models)
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    short_attention_packed.launches = 0
+    zero_counts()
     t1 = time.time()
-    res = pipe.text2video(**T2V_ARGS)
+    res = pipe.text2video(**args)
     torch.cuda.synchronize()
     t_run = time.time() - t1
-    launches = {"flash_attention": flash_attention.launches,
-                "short_attention": short_attention_packed.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     vid = res.videos
-    print(f"phase path: build_models {t_build:.1f} s, text2video {t_run:.2f} s, "
+    print(f"phase path {preset}: build_models {t_build:.1f} s, text2video {t_run:.2f} s, "
           f"peak device memory {peak_gb:.1f} GB, launches {launches}, video {vid.shape}")
-    if vid.shape != (1, 25, 576, 576, 3):
-        fail(f"text2video gave shape {vid.shape}, expected (1, 25, 576, 576, 3)")
+    if vid.shape != VIDEO_SHAPE:
+        fail(f"{preset} text2video gave shape {vid.shape}, expected {VIDEO_SHAPE}")
     if not np.isfinite(vid).all() or vid.min() < 0.0 or vid.max() > 1.0:
-        fail("text2video gave non-finite values or values outside [0, 1]")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the main path launched {name} no time")
-    profile = profile_path(torch, pipe)
-    del models, pipe
-    torch.cuda.empty_cache()
+        fail(f"{preset} text2video gave non-finite values or values outside [0, 1]")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the {preset} path launched {name} no time")
+    profile = profile_path(torch, pipe, args)
     return dict(build_models_s=t_build, text2video_s=t_run, peak_gb=peak_gb,
-                launches=launches, profile=profile)
+                launches=launches, profile=profile), models
 
 
-def profile_path(torch, pipe) -> dict:
+def profile_path(torch, pipe, args) -> dict:
     """A second text2video under torch.profiler: device time by kernel and
     the device's busy share of the wall time (single stream, no overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipe.text2video(**T2V_ARGS)
+        pipe.text2video(**args)
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -270,10 +325,81 @@ def profile_path(torch, pipe) -> dict:
     for key, ms, n in rows[:12]:
         print(f"  {ms:9.1f} ms {ms / busy_ms:6.1%} x{n:<6d} {key[:110]}")
     mine = {name: sum(r[1] for r in rows if name in r[0])
-            for name in ("flash_fwd_kernel", "short_attn_kernel")}
+            for name in ("flash_fwd_kernel", "flash_stream_kernel", "short_attn_kernel")}
     print(f"  port kernels: {mine}")
     return dict(wall_ms=wall_ms, device_ms=busy_ms, port_kernels_ms=mine,
                 top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]])
+
+
+def phase_split(torch, models) -> dict:
+    """One full-width musev_referencenet UNet call (78 frame rows of 72x72
+    latents, ReferenceNet embeddings of one reference image, 4 IP tokens)
+    under MUSEV_FLASH_LONGKV=split against the same call under carry: only
+    the 8 long-KV sites (L0 ReferenceOnly cond half, L0 fuse) differ.
+
+    Each comparison is printed beside the call's sensitivity floor: the
+    same call under carry with its input perturbed by 1e-3 N(0, 1). At the
+    path's N(0, 0.02) weights the random full-width UNet is chaotic (the
+    floor is about 1e-1, above any tolerance a bf16 kernel change can be
+    held to), so the gate is taken with the UNet and ReferenceNet redrawn
+    at N(0, 0.01)."""
+    from musev_torch.models.referencenet import referencenet_apply
+    from musev_torch.models.unet3d import unet3d_apply
+    from musev_torch.pipelines.loader import init_random_
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen, dtype=torch.bfloat16)
+
+    rows = 6  # 3 windows x 2 CFG halves
+    sample, cond = rand(rows, 12, 72, 72, 4), rand(rows, 1, 72, 72, 4)
+    text, clip = rand(rows, 77, 768), rand(rows, 4, 768)
+    noise = rand(rows, 12, 72, 72, 4)
+    ref_latent, ref_ctx = rand(1, 72, 72, 4), rand(1, 4, 768)
+    record = {}
+    for scale in (0.02, SPLIT_WEIGHT_SCALE):
+        if scale != 0.02:  # the path's models were drawn at N(0, 0.02)
+            for module in (models.unet, models.referencenet):
+                init_random_(module, gen, scale=scale)
+        with torch.inference_mode():
+            down, mid = referencenet_apply(models.referencenet, ref_latent, 0.0, ref_ctx)
+            kw = dict(condition_latents=cond, gen_index=tuple(range(1, 13)), cond_index=(0,),
+                      do_cfg=True,
+                      down_block_refer_embs=[e.expand(rows, *e.shape[1:]) for e in down],
+                      mid_block_refer_emb=mid.expand(rows, *mid.shape[1:]), vision_clip_emb=clip)
+            out, ms, launches = {}, {}, {}
+            for impl, x in (("carry", sample), ("split", sample),
+                            ("carry, input + 1e-3 noise", sample + 1e-3 * noise)):
+                os.environ["MUSEV_FLASH_LONGKV"] = impl.split(",")[0]
+                zero_counts()
+                t1 = time.time()
+                out[impl] = unet3d_apply(models.unet, x, 500.0, text, **kw).float()
+                torch.cuda.synchronize()
+                ms[impl] = (time.time() - t1) * 1e3
+                launches[impl] = read_counts()
+            os.environ.pop("MUSEV_FLASH_LONGKV")
+
+        def rel(key):
+            return ((out[key] - out["carry"]).norm() / out["carry"].norm()).item()
+
+        err, floor = rel("split"), rel("carry, input + 1e-3 noise")
+        finite = bool(torch.isfinite(out["split"]).all())
+        record[f"N(0, {scale})"] = dict(relative_l2=err, sensitivity_floor=floor,
+                                        finite=finite, ms=ms, launches=launches)
+        print(f"phase split, weights N(0, {scale}): UNet call carry {ms['carry']:.0f} ms, "
+              f"split {ms['split']:.0f} ms (host clock), relative L2 split vs carry "
+              f"{err:.2e}, sensitivity floor (carry, input + 1e-3 noise) {floor:.2e}; "
+              f"launches carry {launches['carry']}, split {launches['split']}")
+    gate = record[f"N(0, {SPLIT_WEIGHT_SCALE})"]
+    print(f"phase split: gate at N(0, {SPLIT_WEIGHT_SCALE}) relative L2 "
+          f"{gate['relative_l2']:.2e} (tol 5e-2), {time.time() - t0:.1f} s")
+    if not (gate["finite"] and gate["relative_l2"] <= 5e-2):
+        fail(f"the split route disagrees with carry on the UNet call: {gate['relative_l2']}")
+    if gate["launches"]["split"]["flash_attention_parts"] <= 0:
+        fail("the split UNet call launched the stats kernel no time")
+    return record
 
 
 def phase_reference(torch):
@@ -318,34 +444,61 @@ def main() -> None:
     if not (ROOT / "musev_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (musev_torch/ missing)")
     sys.path.insert(0, str(ROOT))
+    import numpy as np
 
     t0 = time.time()
     card = phase_build()
-    flash_rows, short_rows = phase_kernels(torch)
-    path = phase_path(torch)
+    rows = phase_kernels(torch)
+    paths = {}
+    paths["musev"], models = phase_path(torch, "musev", T2V_ARGS,
+                                        need=("flash_attention", "short_attention"))
+    del models
+    torch.cuda.empty_cache()
+    image = np.random.default_rng(0).uniform(0, 255, (1, 1, 576, 576, 3)).astype(np.float32)
+    paths["musev_referencenet"], models = phase_path(
+        torch, "musev_referencenet", dict(T2V_ARGS, condition_images=image),
+        need=("flash_attention", "short_attention"))
+    split = phase_split(torch, models)
+    del models
+    torch.cuda.empty_cache()
     ref_err = phase_reference(torch)
 
-    def entry(name, source, replaces, rows):
-        head = rows[0]  # the largest main-path site
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=path["launches"][name],
-                    max_abs_err=max(r["max_abs_err"] for r in rows),
+    # launches: this slice's path for the kernels it runs; the split UNet call
+    # for the split-merge route, which no path takes under the default carry
+    split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
+    path_counts = dict(paths["musev_referencenet"]["launches"],
+                       flash_attention_parts=split_counts["flash_attention_parts"])
+    by_path = {name: {"musev": paths["musev"]["launches"][name],
+                      "musev_referencenet": paths["musev_referencenet"]["launches"][name],
+                      "split UNet call": split_counts[name]}
+               for name in KERNELS}
+
+    def entry(name, source, replaces, head_site=None, **extra):
+        sites = rows[name]
+        head = next((r for r in sites if r["site"] == head_site), sites[0])
+        return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
+                    launches=path_counts[name], launches_by_path=by_path[name],
+                    max_abs_err=max(r["max_abs_err"] for r in sites),
                     ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    site=head["site"], sites=rows)
+                    site=head["site"], sites=sites)
 
+    flash_py = "musev_tpu/ops/pallas/flash_attention.py"
     kernels = [
-        entry("flash_attention", "musev_torch/csrc/flash_attention.cu",
-              "musev_tpu/ops/pallas/flash_attention.py:77,297", flash_rows),
+        entry("flash_attention", "musev_torch/csrc/flash_attention.cu", f"{flash_py}:77,297"),
+        entry("flash_attention_parts", "musev_torch/csrc/flash_attention.cu", f"{flash_py}:77",
+              LONGKV_HEAD, variant="with_stats=True, merged by _merge_parts (:589)"),
+        entry("flash_stream", "musev_torch/csrc/flash_stream.cu", f"{flash_py}:165",
+              LONGKV_HEAD),
         entry("short_attention", "musev_torch/csrc/short_attention.cu",
-              "musev_tpu/ops/pallas/short_attention.py:39", short_rows),
+              "musev_tpu/ops/pallas/short_attention.py:39"),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, device=device, kernels=kernels, path=path,
+        dict(card=card, device=device, kernels=kernels, paths=paths, split=split,
              reference_rel_err=ref_err, total_s=time.time() - t0), indent=1))
     print(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

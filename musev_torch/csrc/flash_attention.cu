@@ -29,6 +29,13 @@
 // Head dim 512 (the VAE mid-block) would need 256 fp32 accumulators per
 // thread, so there four warps share each 16-row group and each owns a quarter
 // of the output columns; each recomputes the group's S (QK^T flops x4, PV x1).
+//
+// Softmax stats (the with_stats=True outputs of _unroll_kernel, for the JAX
+// package's split-merge route): when m/l are given, each row's running max m
+// (of s * scale * log2e, the log2 units of the kernel's exp2) and
+// l = sum exp2(s * scale * log2e - m) are written in fp32 to (B, Sq, H)
+// arrays, so partial results over KV parts merge exactly. A row whose keys are
+// all masked keeps m = -inf and l = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +97,8 @@ __global__ void __launch_bounds__(WQ* WD * 32)
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                      int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
                      long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
+                     long long v_sb, long long v_ss, long long v_sh, float scale_log2,
+                     float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr int BQ = 16 * WQ;
   constexpr int NT = WQ * WD * 32;
   constexpr int LDS = DP + 8;      // row stride: conflict-free 32-bit fragment loads
@@ -229,6 +237,17 @@ __global__ void __launch_bounds__(WQ* WD * 32)
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
   const int row_lo = q0 + r0 + g;
   const int row_hi = row_lo + 8;
+  if (m_out != nullptr && t == 0 && wd == 0) {
+    const long long st = (long long)b * Sq * H + h;
+    if (row_lo < Sq) {
+      m_out[st + (long long)row_lo * H] = m_lo;
+      l_out[st + (long long)row_lo * H] = l_lo;
+    }
+    if (row_hi < Sq) {
+      m_out[st + (long long)row_hi * H] = m_hi;
+      l_out[st + (long long)row_hi * H] = l_hi;
+    }
+  }
   const long long o_ss = (long long)H * D;
   __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D;
 #pragma unroll
@@ -248,7 +267,8 @@ __global__ void __launch_bounds__(WQ* WD * 32)
 template <int DP, int WQ, int WD, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int Sq, int Sk, int D, const long long* qs, const long long* ks,
-                   const long long* vs, float scale, cudaStream_t stream) {
+                   const long long* vs, float scale, float* m, float* l,
+                   cudaStream_t stream) {
   constexpr int BQ = 16 * WQ;
   constexpr int LDS = DP + 8;
   const size_t smem = (size_t)(BQ + 2 * BK) * LDS * sizeof(__nv_bfloat16);
@@ -261,7 +281,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
       reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
       reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(o), H, Sq,
       Sk, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      scale * kLog2e);
+      scale * kLog2e, m, l);
   return cudaGetLastError();
 }
 
@@ -270,22 +290,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" {
 
 // q/k/v strides are (batch, seq, head) in elements; the head dim is contiguous.
+// m and l are null, or fp32 (B, Sq, H) outputs for the softmax stats.
 // Returns 0 on success, a cudaError_t, or -1 for an unsupported head dim.
 int musev_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
-                               long long v_sh, float scale, void* stream) {
+                               long long v_sh, float scale, void* m, void* l, void* stream) {
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* mf = reinterpret_cast<float*>(m);
+  float* lf = reinterpret_cast<float*>(l);
   if (D <= 0 || D % 8 != 0) return -1;
-  if (D <= 48) return launch<48, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 64) return launch<64, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 80) return launch<80, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 160) return launch<160, 4, 1, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 512) return launch<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
+  if (D <= 48) return launch<48, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 64) return launch<64, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 80) return launch<80, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 160) return launch<160, 4, 1, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 512) return launch<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
   return -1;
 }
 

@@ -32,3 +32,15 @@ def vae_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
 
 def clip_text_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     return _to_torch(sd_weights.export_state_dict(sd_weights.clip_text_key_map(cfg), params))
+
+
+def referencenet_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.referencenet_key_map(cfg), params))
+
+
+def clip_vision_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.clip_vision_key_map(cfg), params))
+
+
+def image_proj_from_jax(params) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.image_proj_key_map(), params))

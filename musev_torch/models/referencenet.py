@@ -1,0 +1,110 @@
+"""ReferenceNet2D: an SD UNet trunk that emits its intermediate features.
+
+Counterpart of ``musev_tpu/models/referencenet.py`` (reference
+musev/models/referencenet.py): conv_in, the down blocks and the mid block of
+a 2D UNet. With block embeddings only, the reference prunes the decoder head
+(referencenet.py:624-636), so the up blocks are not built; the
+``need_self_attn_embs`` write mode that needs them is not ported yet. Module
+names are the reference torch keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from .common import Conv2d
+from .embeddings import TimestepEmbedding, sinusoidal_embedding
+from .unet_blocks import Downsample, ResnetBlock, SpatialTransformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceNetConfig:
+    in_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    attention_heads: int = 8
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+
+    @property
+    def temb_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+class _Block(nn.Module):
+    def __init__(self, cfg: ReferenceNetConfig, in_c: int, out_c: int, n: int, attn: bool):
+        super().__init__()
+        g, eps = cfg.norm_num_groups, cfg.norm_eps
+        self.resnets = nn.ModuleList([
+            ResnetBlock(in_c if j == 0 else out_c, out_c, cfg.temb_dim, g, eps)
+            for j in range(n)
+        ])
+        if attn:
+            self.attentions = nn.ModuleList([
+                SpatialTransformer(out_c, cfg.cross_attention_dim, cfg.attention_heads, g)
+                for _ in range(n)
+            ])
+
+
+class ReferenceNet2D(nn.Module):
+    def __init__(self, cfg: ReferenceNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        chs = cfg.block_out_channels
+        self.conv_in = Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(chs[0], cfg.temb_dim)
+        self.down_blocks = nn.ModuleList()
+        out_c = chs[0]
+        for i, c in enumerate(chs):
+            last = i == len(chs) - 1  # SD1.5: the last down block has no attention
+            block = _Block(cfg, out_c, c, cfg.layers_per_block, not last)
+            if not last:
+                block.downsamplers = nn.ModuleList([Downsample(c)])
+            self.down_blocks.append(block)
+            out_c = c
+        self.mid_block = _Block(cfg, chs[-1], chs[-1], 2, False)
+        self.mid_block.attentions = nn.ModuleList([
+            SpatialTransformer(chs[-1], cfg.cross_attention_dim, cfg.attention_heads,
+                               cfg.norm_num_groups)
+        ])
+
+
+def referencenet_apply(
+    net: ReferenceNet2D, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Run the trunk on reference latents.
+
+    sample (B, H, W, C) reference-image latents; timestep a scalar, 0 in the
+    pipeline as in the reference (``ref_timestep = torch.zeros_like``,
+    pipeline_controlnet.py:895); encoder_hidden_states (B, S, D) text or
+    IP-Adapter image tokens. Returns the 12 down-block embeddings (conv_in,
+    every down layer and downsampler) and the mid-block embedding, each
+    (B, 1, h, w, c) with a singleton time axis (referencenet.py:1017-1034).
+    """
+    b = sample.shape[0]
+    ch0 = net.cfg.block_out_channels[0]
+    ts = torch.as_tensor(timestep, dtype=torch.float32, device=sample.device).reshape(-1)
+    temb = net.time_embedding(sinusoidal_embedding(ts.expand(b), ch0).to(sample.dtype))
+    kw = dict(num_frames=1, cond_index=None, do_cfg=False, reference_attn=False)
+
+    x = net.conv_in(sample)
+    embs = [x]
+    for block in net.down_blocks:
+        for j, resnet in enumerate(block.resnets):
+            x = resnet(x, temb)
+            if hasattr(block, "attentions"):
+                x = block.attentions[j](x, encoder_hidden_states, **kw)
+            embs.append(x)
+        if hasattr(block, "downsamplers"):
+            x = block.downsamplers[0](x)
+            embs.append(x)
+    mid = net.mid_block
+    x = mid.resnets[0](x, temb)
+    x = mid.attentions[0](x, encoder_hidden_states, **kw)
+    x = mid.resnets[1](x, temb)
+    return [e[:, None] for e in embs], x[:, None]

@@ -1,17 +1,19 @@
 """Reference torch key maps and the JAX-param -> torch-layout export.
 
 A copy of the key-map part of ``musev_tpu/models/sd_weights.py`` (the port
-imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map`` and
-``clip_text_key_map`` yield ``(torch_key, tree_path, kind)`` triples, and
+imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map``,
+``clip_text_key_map``, ``referencenet_key_map``, ``clip_vision_key_map`` and
+``image_proj_key_map`` yield ``(torch_key, tree_path, kind)`` triples, and
 ``export_state_dict`` reads a JAX-layout param tree (nested dicts/lists of
 arrays) through a map into torch-layout numpy arrays: HWIO -> OIHW for
 convolutions, (in, out) -> (out, in) for linears, (kT, 1, I, O) ->
-(O, I, kT, 1, 1) for the temporal conv. Numpy only.
+(O, I, kT, 1, 1) for the temporal conv. ``ip_adapter_site_paths`` names the
+attn2 modules in the numbering of an ``ip_adapter.bin``. Numpy only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -19,27 +21,30 @@ Path = Tuple
 KeyEntry = Tuple[str, Path, str]  # torch key prefix (no .weight/.bias), path, kind
 
 
-def _attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+def _attn_entries(tk: str, path: Path, with_ip: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.to_q", (*path, "to_q"), "linear"
     yield f"{tk}.to_k", (*path, "to_k"), "linear"
     yield f"{tk}.to_v", (*path, "to_v"), "linear"
     yield f"{tk}.to_out.0", (*path, "to_out"), "linear"
+    if with_ip:  # the IP-Adapter dual-KV projections (the FaceID pair is not ported)
+        yield f"{tk}.to_k_ip", (*path, "to_k_ip"), "linear"
+        yield f"{tk}.to_v_ip", (*path, "to_v_ip"), "linear"
 
 
-def _tf_block_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+def _tf_block_entries(tk: str, path: Path, ip: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.norm1", (*path, "norm1"), "norm"
     yield from _attn_entries(f"{tk}.attn1", (*path, "attn1"))
     yield f"{tk}.norm2", (*path, "norm2"), "norm"
-    yield from _attn_entries(f"{tk}.attn2", (*path, "attn2"))
+    yield from _attn_entries(f"{tk}.attn2", (*path, "attn2"), with_ip=ip)
     yield f"{tk}.norm3", (*path, "norm3"), "norm"
     yield f"{tk}.ff.net.0.proj", (*path, "ff", "proj_in"), "linear"
     yield f"{tk}.ff.net.2", (*path, "ff", "proj_out"), "linear"
 
 
-def _spatial_attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
+def _spatial_attn_entries(tk: str, path: Path, ip: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.norm", (*path, "norm"), "norm"
     yield f"{tk}.proj_in", (*path, "proj_in"), "conv2d"
-    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"))
+    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"), ip)
     yield f"{tk}.proj_out", (*path, "proj_out"), "conv2d"
 
 
@@ -73,8 +78,8 @@ def _resnet_entries(tk: str, path: Path, temb: bool = True) -> Iterator[KeyEntry
 
 
 def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
-    """Keys of the UNet3D sites this port builds (no ReferenceNet fusion or
-    IP-Adapter projections)."""
+    """Keys of the UNet3D sites this port builds (the ReferenceNet fuse and
+    IP-Adapter projections included; no FaceID pair)."""
     yield "conv_in", ("conv_in",), "conv2d"
     yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
     yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
@@ -83,6 +88,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
         yield "frame_embedding.linear_2", ("frame_embedding", "linear_2"), "linear"
     if cfg.need_transformer_in and cfg.temporal_transformer:
         yield from _temporal_attn_entries("transformer_in", ("transformer_in",))
+    ip = cfg.ip_adapter_cross_attn
     for i, btype in enumerate(cfg.down_block_types):
         base = f"down_blocks.{i}"
         for j in range(cfg.layers_per_block):
@@ -91,20 +97,28 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
             if cfg.temporal_conv:
                 yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
             if "CrossAttn" in btype:
-                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), ip)
             if cfg.temporal_transformer:
                 yield from _temporal_attn_entries(
                     f"{base}.temp_attentions.{j}", (*path, "temp_attn")
                 )
-        if i < len(cfg.down_block_types) - 1:
+        last = i == len(cfg.down_block_types) - 1
+        if not last:
             yield (f"{base}.downsamplers.0.conv", ("down_blocks", i, "downsample", "conv"),
                    "conv2d")
+        if cfg.need_refer_emb:
+            for j in range(cfg.layers_per_block + (0 if last else 1)):
+                yield from _attn_entries(f"{base}.refer_emb_attns.{j}",
+                                         ("down_blocks", i, "refer_emb_attns", j))
+    if cfg.need_refer_emb:
+        yield from _attn_entries("first_refer_emb_attns", ("first_refer_emb_attns",))
+        yield from _attn_entries("mid_block_refer_emb_attns", ("mid_block_refer_emb_attns",))
     yield from _resnet_entries("mid_block.resnets.0", ("mid_block", "resnet_0"))
     yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
     if cfg.temporal_conv:
         yield from _temporal_conv_entries("mid_block.temp_convs.0", ("mid_block", "temp_conv_0"))
         yield from _temporal_conv_entries("mid_block.temp_convs.1", ("mid_block", "temp_conv_1"))
-    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"))
+    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"), ip)
     if cfg.temporal_transformer:
         yield from _temporal_attn_entries(
             "mid_block.temp_attentions.0", ("mid_block", "temp_attn")
@@ -117,7 +131,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
             if cfg.temporal_conv:
                 yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
             if "CrossAttn" in btype:
-                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), ip)
             if cfg.temporal_transformer:
                 yield from _temporal_attn_entries(
                     f"{base}.temp_attentions.{j}", (*path, "temp_attn")
@@ -188,6 +202,78 @@ def clip_text_key_map(cfg) -> Iterator[KeyEntry]:
     yield "text_model.final_layer_norm", ("final_layer_norm",), "norm"
 
 
+def referencenet_key_map(cfg) -> Iterator[KeyEntry]:
+    """ReferenceNet2D = the SD UNet trunk (its head pruned, referencenet.py
+    :624-636): the 2D UNet's down and mid keys."""
+    yield "conv_in", ("conv_in",), "conv2d"
+    yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
+    yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            path = ("down_blocks", i, "layers", j)
+            yield from _resnet_entries(f"{base}.resnets.{j}", (*path, "resnet"))
+            if i < n - 1:
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+        if i < n - 1:
+            yield (f"{base}.downsamplers.0.conv", ("down_blocks", i, "downsample", "conv"),
+                   "conv2d")
+    yield from _resnet_entries("mid_block.resnets.0", ("mid_block", "resnet_0"))
+    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"))
+    yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
+
+
+def clip_vision_key_map(cfg) -> Iterator[KeyEntry]:
+    """transformers CLIPVisionModelWithProjection keys (the IP-Adapter image
+    encoder). The JAX package converts the bare HWIO patch-embedding array
+    outside its map (``convert_clip_vision``); here it is the "patch" entry.
+    'pre_layrnorm' is the checkpoints' own spelling."""
+    pre = "vision_model"
+    yield f"{pre}.embeddings.patch_embedding", ("patch_embedding",), "patch"
+    yield f"{pre}.embeddings.class_embedding", ("class_embedding",), "raw"
+    yield f"{pre}.embeddings.position_embedding", ("position_embedding",), "embedding"
+    yield f"{pre}.pre_layrnorm", ("pre_layrnorm",), "norm"
+    for i in range(cfg.num_layers):
+        lk = f"{pre}.encoder.layers.{i}"
+        path = ("layers", i)
+        yield f"{lk}.layer_norm1", (*path, "layer_norm1"), "norm"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            yield f"{lk}.self_attn.{n}", (*path, n), "linear"
+        yield f"{lk}.layer_norm2", (*path, "layer_norm2"), "norm"
+        yield f"{lk}.mlp.fc1", (*path, "fc1"), "linear"
+        yield f"{lk}.mlp.fc2", (*path, "fc2"), "linear"
+    yield f"{pre}.post_layernorm", ("post_layernorm",), "norm"
+    yield "visual_projection", ("visual_projection",), "linear"
+
+
+def image_proj_key_map() -> Iterator[KeyEntry]:
+    """ImageProjModel, the "image_proj" part of an ip_adapter.bin
+    (``convert_image_proj``, sd_weights.py:747-765)."""
+    yield "proj", ("proj",), "linear"
+    yield "norm", ("norm",), "norm"
+
+
+def ip_adapter_site_paths(cfg) -> List[str]:
+    """Module prefixes of the attn2 sites in the IP-Adapter checkpoint order:
+    down blocks, up blocks (skipping the attention-less first up block), mid
+    last (``ip_adapter_site_paths``, sd_weights.py:700-716, after
+    ip_adapter_loader.py:232-305). Site i holds the checkpoint's
+    ``{2i + 1}.to_k_ip.weight`` and ``{2i + 1}.to_v_ip.weight``."""
+    block = "transformer_blocks.0.attn2"
+    paths = []
+    for i, btype in enumerate(cfg.down_block_types):
+        if "CrossAttn" in btype:
+            for j in range(cfg.layers_per_block):
+                paths.append(f"down_blocks.{i}.attentions.{j}.{block}")
+    for i, btype in enumerate(cfg.up_block_types):
+        if "CrossAttn" in btype:
+            for j in range(cfg.layers_per_block + 1):
+                paths.append(f"up_blocks.{i}.attentions.{j}.{block}")
+    paths.append(f"mid_block.attentions.0.{block}")
+    return paths
+
+
 def _get(tree, path):
     for k in path:
         if isinstance(tree, (list, tuple)):
@@ -212,11 +298,14 @@ def export_state_dict(key_map, params) -> Dict[str, np.ndarray]:
             out[tk if kind == "raw" else f"{tk}.weight"] = c(np.asarray(node[path[-1]]))
             continue
         node = _get(params, path)
-        if node is None or ("kernel" not in node and "scale" not in node):
+        if node is None or (kind != "patch" and "kernel" not in node and "scale" not in node):
             continue
         if kind == "norm":
             out[f"{tk}.weight"] = c(np.asarray(node["scale"]))
             out[f"{tk}.bias"] = c(np.asarray(node["bias"]))
+            continue
+        if kind == "patch":  # bare HWIO conv array
+            out[f"{tk}.weight"] = c(np.asarray(node).transpose(3, 2, 0, 1))
             continue
         kern = np.asarray(node["kernel"])
         if kind == "linear":

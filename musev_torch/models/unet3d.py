@@ -10,9 +10,11 @@ its ``batch_adain_conditioned_tensor`` discards the result for 4-D inputs
 (data_util.py:600-601), so block-level AdaIN is a no-op in the released
 models; ``adain_fix=False`` (default) reproduces that.
 
-``UNet3DConfig`` has the JAX config's fields for what is ported. Not ported
-yet, and absent from the config: ReferenceNet block-emb fusion, the
-IP-Adapter and FaceID cross-attention branches, the spatial position
+``UNet3DConfig`` has the JAX config's fields for what is ported, including
+the ``musev_referencenet`` preset's ReferenceNet block-emb fusion (13
+``ReferEmbFuse`` sites: the stem, after every down layer and downsampler, and
+after the mid block) and the IP-Adapter dual-KV cross-attention. Not ported
+yet, and absent from the config: the FaceID branch, the spatial position
 embedding and the sparse-causal temporal mask.
 """
 
@@ -31,6 +33,7 @@ from .common import Conv2d, GroupNorm
 from .embeddings import TimestepEmbedding, sinusoidal_embedding
 from .unet_blocks import (
     Downsample,
+    ReferEmbFuse,
     ResnetBlock,
     SpatialTransformer,
     TemporalConvLayer,
@@ -70,6 +73,9 @@ class UNet3DConfig:
     keep_vision_condition: bool = False
     use_anivv1_cfg: bool = False
     resnet_skip_time_act: bool = False
+    need_refer_emb: bool = False  # ReferenceNet block-emb fusion
+    ip_adapter_cross_attn: bool = False
+    ip_adapter_dim: int = 768  # IP-Adapter image-token width after projection
     keep_content_condition: bool = False
 
     @property
@@ -86,8 +92,28 @@ def musev_config(**overrides) -> UNet3DConfig:
     return UNet3DConfig(**overrides)
 
 
+def musev_referencenet_config(**overrides) -> UNet3DConfig:
+    """The ``musev_referencenet`` preset (unet_loader.py:243-268)."""
+    kw: Dict[str, Any] = dict(
+        need_transformer_in=False,
+        use_anivv1_cfg=True,
+        resnet_skip_time_act=True,
+        keep_vision_condition=True,
+        need_refer_emb=True,
+        ip_adapter_cross_attn=True,
+    )
+    kw.update(overrides)
+    return UNet3DConfig(**kw)
+
+
 def _is_cross(name: str) -> bool:
     return "CrossAttn" in name
+
+
+def _spatial_transformer(cfg: UNet3DConfig, c: int) -> SpatialTransformer:
+    ip_dim = cfg.ip_adapter_dim if cfg.ip_adapter_cross_attn else None
+    return SpatialTransformer(c, cfg.cross_attention_dim, cfg.attention_heads,
+                              cfg.norm_num_groups, ip_dim)
 
 
 class _Block(nn.Module):
@@ -107,8 +133,7 @@ class _Block(nn.Module):
         n_attn = n if cross else 0
         if n_attn:
             self.attentions = nn.ModuleList([
-                SpatialTransformer(out_c, cfg.cross_attention_dim, cfg.attention_heads, g)
-                for _ in range(n_attn)
+                _spatial_transformer(cfg, out_c) for _ in range(n_attn)
             ])
         if cross and temporal_attn:
             self.temp_attentions = nn.ModuleList([
@@ -130,6 +155,9 @@ class UNet3D(nn.Module):
             self.frame_embedding = TimestepEmbedding(ch0, cfg.femb_dim)
         if cfg.need_transformer_in and cfg.temporal_transformer:
             self.transformer_in = TemporalTransformer(ch0, cfg.attention_heads, cfg.femb_dim, g)
+        if cfg.need_refer_emb:
+            self.first_refer_emb_attns = ReferEmbFuse(ch0, heads=cfg.attention_heads)
+            self.mid_block_refer_emb_attns = ReferEmbFuse(chs[-1], heads=cfg.attention_heads)
 
         skip_channels = [ch0]
         self.down_blocks = nn.ModuleList()
@@ -139,16 +167,20 @@ class UNet3D(nn.Module):
             ins = [in_c] + [out_c] * (cfg.layers_per_block - 1)
             block = _Block(cfg, ins, out_c, _is_cross(btype), cfg.temporal_transformer)
             skip_channels += [out_c] * cfg.layers_per_block
-            if i < len(chs) - 1:
+            last = i == len(chs) - 1
+            if not last:
                 block.downsamplers = nn.ModuleList([Downsample(out_c)])
                 skip_channels.append(out_c)
+            if cfg.need_refer_emb:
+                block.refer_emb_attns = nn.ModuleList([
+                    ReferEmbFuse(out_c, heads=cfg.attention_heads)
+                    for _ in range(cfg.layers_per_block + (0 if last else 1))
+                ])
             self.down_blocks.append(block)
 
         mid_c = chs[-1]
         self.mid_block = _Block(cfg, [mid_c, mid_c], mid_c, False, False)
-        self.mid_block.attentions = nn.ModuleList([
-            SpatialTransformer(mid_c, cfg.cross_attention_dim, cfg.attention_heads, g)
-        ])
+        self.mid_block.attentions = nn.ModuleList([_spatial_transformer(cfg, mid_c)])
         if cfg.temporal_transformer:
             self.mid_block.temp_attentions = nn.ModuleList([
                 TemporalTransformer(mid_c, cfg.attention_heads, cfg.femb_dim, g)
@@ -181,9 +213,11 @@ def prepare_unet_inputs(
     motion_speed: float,
     use_temporal: bool,
     cond_index: Optional[Sequence[int]],
+    vision_clip_emb: Optional[torch.Tensor] = None,
 ):
-    """Returns ``(temb, femb, text_ctx, cond_mask)``: temb and text_ctx are
-    aligned to the (B*T, ...) frame rows of ``sample``; femb is (B, T, D)."""
+    """Returns ``(temb, femb, text_ctx, clip_ctx, cond_mask)``: temb, text_ctx
+    and clip_ctx are aligned to the (B*T, ...) frame rows of ``sample``; femb
+    is (B, T, D); clip_ctx is None without IP-Adapter tokens."""
     cfg = unet.cfg
     b, num_frames = sample.shape[:2]
     dtype, device = sample.dtype, sample.device
@@ -209,15 +243,20 @@ def prepare_unet_inputs(
         if cfg.use_anivv1_cfg:
             femb = F.silu(femb)
 
-    if text_emb.ndim == 3:
-        text_ctx = text_emb.repeat_interleave(num_frames, dim=0)
-    else:
-        text_ctx = text_emb.reshape(-1, *text_emb.shape[2:])
+    def rows(emb):  # (B, S, D) per video or (B, T, S, D) per frame -> (B*T, S, D)
+        if emb.ndim == 3:
+            return emb.repeat_interleave(num_frames, dim=0)
+        return emb.reshape(-1, *emb.shape[2:])
+
+    text_ctx = rows(text_emb)
+    clip_ctx = None
+    if vision_clip_emb is not None and cfg.ip_adapter_cross_attn:
+        clip_ctx = rows(vision_clip_emb)
 
     cond_mask = None
     if cfg.keep_content_condition and use_temporal and num_frames > 1 and cond_index is not None:
         cond_mask = frame_mask(num_frames, cond_index, device=device)
-    return temb, femb, text_ctx, cond_mask
+    return temb, femb, text_ctx, clip_ctx, cond_mask
 
 
 def unet3d_core(
@@ -233,6 +272,10 @@ def unet3d_core(
     gen_index: Optional[Sequence[int]],
     cond_index: Optional[Sequence[int]],
     cond_mask: Optional[torch.Tensor],
+    clip_ctx: Optional[torch.Tensor] = None,
+    ip_adapter_scale: float = 1.0,
+    down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
+    mid_block_refer_emb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The UNet block loop over frame rows ``x (B*T, H, W, C)``."""
     cfg = unet.cfg
@@ -241,7 +284,10 @@ def unet3d_core(
         cond_index=cond_index if use_temporal else None,
         do_cfg=do_cfg,
         reference_attn=cfg.reference_attn,
+        vision_clip_tokens=clip_ctx,
+        ip_adapter_scale=ip_adapter_scale,
     )
+    fuse_down = cfg.need_refer_emb and down_block_refer_embs is not None
 
     def temporal_conv(mod, x):
         return mod(x, num_frames=num_frames, cond_mask=cond_mask) if use_temporal else x
@@ -269,17 +315,28 @@ def unet3d_core(
             x = temporal_attn(block.temp_attentions[j], x)
         return adain(x)
 
+    def fuse(mod, x, refer_emb):
+        return mod(x, refer_emb, num_frames=num_frames)
+
     x = unet.conv_in(x)
     if hasattr(unet, "transformer_in"):
         x = temporal_attn(unet.transformer_in, x)
+    refer = iter(down_block_refer_embs or ())
+    if fuse_down:  # the stem and the 11 down sites take the 12 down embeddings in order
+        x = fuse(unet.first_refer_emb_attns, x, next(refer))
 
     skips = [x]
     for block in unet.down_blocks:
+        fusers = iter(block.refer_emb_attns if fuse_down else ())
         for j in range(len(block.resnets)):
             x = layer(block, j, x)
+            if fuse_down:
+                x = fuse(next(fusers), x, next(refer))
             skips.append(x)
         if hasattr(block, "downsamplers"):
             x = adain(block.downsamplers[0](x))
+            if fuse_down:
+                x = fuse(next(fusers), x, next(refer))
             skips.append(x)
 
     mid = unet.mid_block
@@ -293,6 +350,8 @@ def unet3d_core(
     if hasattr(mid, "temp_convs"):
         x = temporal_conv(mid.temp_convs[1], x)
     x = adain(x)
+    if cfg.need_refer_emb and mid_block_refer_emb is not None:
+        x = fuse(unet.mid_block_refer_emb_attns, x, mid_block_refer_emb)
 
     for block in unet.up_blocks:
         for j in range(len(block.resnets)):
@@ -318,13 +377,20 @@ def unet3d_apply(
     do_cfg: bool = False,
     motion_speed: float = 8.0,
     skip_temporal: bool = False,
+    down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
+    mid_block_refer_emb: Optional[torch.Tensor] = None,
+    vision_clip_emb: Optional[torch.Tensor] = None,
+    ip_adapter_scale: float = 1.0,
 ) -> torch.Tensor:
     """Predict noise for a window of frames.
 
     sample (B, T_gen, H, W, C) noisy latents; timestep scalar or (B,);
     text_emb (B, S, D) or (B, T, S, D); condition_latents (B, n_vc, H, W, C)
-    spliced in at ``cond_index``. Returns (B, T_total, H, W, C) over the
-    spliced video (condition frames included).
+    spliced in at ``cond_index``. ``down_block_refer_embs`` (12 tensors) and
+    ``mid_block_refer_emb``, each (B, T_ref, h, w, c), are the ReferenceNet
+    features fused at the referencenet preset's fuse sites;
+    ``vision_clip_emb`` (B, S_ip, D) the IP-Adapter image tokens. Returns
+    (B, T_total, H, W, C) over the spliced video (condition frames included).
     """
     if condition_latents is not None:
         if gen_index is None or cond_index is None:
@@ -332,13 +398,15 @@ def unet3d_apply(
         sample = splice_with_index(condition_latents, cond_index, sample, gen_index)
     b, num_frames, h0, w0, _ = sample.shape
     use_temporal = not skip_temporal
-    temb, femb, text_ctx, cond_mask = prepare_unet_inputs(
+    temb, femb, text_ctx, clip_ctx, cond_mask = prepare_unet_inputs(
         unet, sample, timestep, text_emb, motion_speed=motion_speed,
-        use_temporal=use_temporal, cond_index=cond_index,
+        use_temporal=use_temporal, cond_index=cond_index, vision_clip_emb=vision_clip_emb,
     )
     x = unet3d_core(
         unet, sample.reshape(b * num_frames, h0, w0, -1), temb, femb, text_ctx,
         num_frames=num_frames, use_temporal=use_temporal, do_cfg=do_cfg,
         gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask,
+        clip_ctx=clip_ctx, ip_adapter_scale=ip_adapter_scale,
+        down_block_refer_embs=down_block_refer_embs, mid_block_refer_emb=mid_block_refer_emb,
     )
     return x.reshape(b, num_frames, h0, w0, -1)

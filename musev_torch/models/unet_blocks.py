@@ -9,7 +9,9 @@ plain self-attention (reference attention.py:319-334).
 
 Attention sites: self-attention over at most ``MAX_SHORT_SEQ`` tokens with no
 context (the temporal rows) goes to the packed short-attention kernel; every
-other site goes through ``ops.attention.sdpa`` (the flash kernel on CUDA).
+other site goes through ``ops.attention.sdpa`` (the flash kernel on CUDA):
+spatial self- and cross-attention, the IP-Adapter dual-KV branch and the
+ReferenceNet fuse (``ReferEmbFuse``, KV = [reference tokens; own tokens]).
 The JAX package's T -> multiple-of-8 padding of temporal rows is a TPU
 re-tiling device and is not ported: the short kernel takes any T <= 64.
 """
@@ -79,9 +81,15 @@ class Upsample(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head attention with fused projections (keys to_q/to_k/to_v/to_out.0)."""
+    """Multi-head attention with fused projections (keys to_q/to_k/to_v/to_out.0).
 
-    def __init__(self, query_dim: int, kv_dim: Optional[int] = None, heads: int = 8):
+    ``ip_kv_dim`` adds the IP-Adapter dual-KV projections to_k_ip/to_v_ip
+    (attention_processor.py:267-339): a second attention over the image
+    tokens, scaled and added to the text-attention output.
+    """
+
+    def __init__(self, query_dim: int, kv_dim: Optional[int] = None, heads: int = 8,
+                 ip_kv_dim: Optional[int] = None):
         super().__init__()
         kv_dim = kv_dim or query_dim
         self.heads = heads
@@ -89,6 +97,9 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
         self.to_v = nn.Linear(kv_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        if ip_kv_dim is not None:
+            self.to_k_ip = nn.Linear(ip_kv_dim, query_dim, bias=False)
+            self.to_v_ip = nn.Linear(ip_kv_dim, query_dim, bias=False)
 
     def project(self, x: torch.Tensor, context: Optional[torch.Tensor]):
         """(q, k, v) projections: self-attention is one matmul with the
@@ -101,15 +112,21 @@ class Attention(nn.Module):
         k, v = (context @ w.t().to(context.dtype)).chunk(2, dim=-1)
         return self.to_q(x), k, v
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (N, S, C); context (N, S_kv, C_kv) or None for self-attention."""
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                ip_context: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
+        """x (N, S, C); context (N, S_kv, C_kv) or None for self-attention;
+        ip_context (N, S_ip, C_ip) image tokens for the IP branch."""
         qp, kp, vp = self.project(x, context)
-        if context is None and x.shape[1] <= MAX_SHORT_SEQ:
-            out = short_attention_packed(qp, kp, vp, self.heads)
-        else:
-            q, k, v = (t.unflatten(-1, (self.heads, -1)) for t in (qp, kp, vp))
-            out = sdpa(q, k, v).flatten(2)
-        return self.to_out[0](out)
+        if context is None and ip_context is None and x.shape[1] <= MAX_SHORT_SEQ:
+            return self.to_out[0](short_attention_packed(qp, kp, vp, self.heads))
+        q, k, v = (t.unflatten(-1, (self.heads, -1)) for t in (qp, kp, vp))
+        out = sdpa(q, k, v)
+        if ip_context is not None and hasattr(self, "to_k_ip") and ip_scale > 0:
+            ip_k, ip_v = (p(ip_context).unflatten(-1, (self.heads, -1))
+                          for p in (self.to_k_ip, self.to_v_ip))
+            out = out + ip_scale * sdpa(q, ip_k, ip_v)
+        return self.to_out[0](out.flatten(2))
 
 
 def reference_self_attention(
@@ -148,40 +165,46 @@ class BasicTransformerBlock(nn.Module):
     """norm1/attn1, norm2/attn2, norm3/ff. ``cross_dim=None`` makes attn2 a
     second self-attention (the temporal blocks' double_self_attention)."""
 
-    def __init__(self, dim: int, cross_dim: Optional[int], heads: int):
+    def __init__(self, dim: int, cross_dim: Optional[int], heads: int,
+                 ip_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, heads=heads)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, cross_dim, heads=heads)
+        self.attn2 = Attention(dim, cross_dim, heads=heads, ip_kv_dim=ip_dim)
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                self_attn=None) -> torch.Tensor:
+                self_attn=None, ip_context: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
         """``self_attn``: replaces attn1 as ``(attn1, norm_h) -> out``."""
         norm_h = self.norm1(x)
         x = x + (self.attn1(norm_h) if self_attn is None else self_attn(self.attn1, norm_h))
-        x = x + self.attn2(self.norm2(x), context=context)
+        x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
+                           ip_scale=ip_scale)
         return x + self.ff(self.norm3(x))
 
 
 class SpatialTransformer(nn.Module):
     """Transformer2DModel: GN -> 1x1 conv -> block -> 1x1 conv + residual."""
 
-    def __init__(self, channels: int, cross_dim: int, heads: int, groups: int = 32):
+    def __init__(self, channels: int, cross_dim: int, heads: int, groups: int = 32,
+                 ip_dim: Optional[int] = None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, cross_dim, heads)]
+            [BasicTransformerBlock(channels, cross_dim, heads, ip_dim)]
         )
         self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, text_ctx: torch.Tensor, *, num_frames: int,
                 cond_index: Optional[Sequence[int]], do_cfg: bool,
-                reference_attn: bool) -> torch.Tensor:
-        """x (B*T, H, W, C); text_ctx (B*T, S, cross_dim)."""
+                reference_attn: bool, vision_clip_tokens: Optional[torch.Tensor] = None,
+                ip_adapter_scale: float = 1.0) -> torch.Tensor:
+        """x (B*T, H, W, C); text_ctx (B*T, S, cross_dim); vision_clip_tokens
+        (B*T, S_ip, ip_dim) IP-Adapter image tokens or None."""
         n, h, w, c = x.shape
         y = self.proj_in(self.norm(x)).reshape(n, h * w, c)
         self_attn = None
@@ -191,7 +214,9 @@ class SpatialTransformer(nn.Module):
                     attn, norm_h, num_frames=num_frames, cond_index=cond_index,
                     do_cfg=do_cfg,
                 )
-        y = self.transformer_blocks[0](y, text_ctx, self_attn=self_attn)
+        y = self.transformer_blocks[0](y, text_ctx, self_attn=self_attn,
+                                       ip_context=vision_clip_tokens,
+                                       ip_scale=ip_adapter_scale)
         return self.proj_out(y.reshape(n, h, w, c)) + x
 
 
@@ -265,3 +290,20 @@ class TemporalTransformer(nn.Module):
             y = y * cond_mask[None, :, None, None, None].to(y.dtype)
         out = v + self.temporal_weight.abs().to(y.dtype) * y
         return out.reshape(bt, h, w, c)
+
+
+class ReferEmbFuse(Attention):
+    """ReferenceNet feature fusion by attention (ReferEmbFuseAttention,
+    attention_processor.py:557-750; ``refer_emb_fuse`` in the JAX package).
+    Each frame row attends to KV = [the reference tokens; its own tokens] and
+    the result is added to it; ``to_out`` is zero-initialised in the
+    reference, so fusion starts as the identity."""
+
+    def forward(self, x: torch.Tensor, refer_emb: torch.Tensor, *,
+                num_frames: int) -> torch.Tensor:
+        """x (B*T, H, W, C); refer_emb (B, T_ref, H_ref, W_ref, C)."""
+        bt, h, w, c = x.shape
+        tokens = x.reshape(bt, h * w, c)
+        ref = refer_emb.reshape(bt // num_frames, -1, c).to(tokens.dtype)
+        kv = torch.cat([ref.repeat_interleave(num_frames, dim=0), tokens], dim=1)
+        return super().forward(tokens, context=kv).reshape(bt, h, w, c) + x

@@ -6,20 +6,26 @@ K/V) and ``_carry_kernel`` (K3, K/V parts carried over a grid axis). On Hopper
 one kernel loops over every KV tile with the softmax state in registers, so
 both regimes are one launch; the TPU's block-size plans have no counterpart.
 
-``flash_attention`` takes CPU tensors to ``flash_attention_plain`` and CUDA
-tensors to the kernel; on CUDA it launches or raises, never falls back.
+``flash_attention_parts`` is the JAX package's split-merge route
+(``_flash_unroll(with_stats=True)`` per KV part, merged by ``_merge_parts``,
+flash_attention.py:575-639): one launch of the same kernel per KV part, each
+also writing its per-row softmax stats (m, l), and an exact merge in PyTorch.
+
+The wrappers take CPU tensors to the plain versions and CUDA tensors to the
+kernel; on CUDA they launch or raise, never fall back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 MAX_HEAD_DIM = 512
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_plain(
@@ -40,6 +46,22 @@ def flash_attention_plain(
     return torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
 
 
+def flash_attention_stats_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(o, m, l)`` in fp32 math: o as ``flash_attention_plain``; m (B, Sq, H)
+    the row max of logits · scale · log2(e), l = Σ exp2(logits · scale ·
+    log2(e) − m), the units of the kernel's stats outputs."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (scale * LOG2E)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l, v.float()).to(q.dtype)
+    return o, m[..., 0].transpose(1, 2).contiguous(), l[..., 0].transpose(1, 2).contiguous()
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
@@ -54,6 +76,58 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError("q, k and v must have one dtype")
 
 
+def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        max_head_dim: int) -> None:
+    """What the (B, S, H, D) attention kernels take on CUDA; raises otherwise."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bfloat16, got {q.dtype}")
+    d = q.shape[-1]
+    if d % 8 or d > max_head_dim:
+        raise ValueError(f"{name} kernel: head dim {d} unsupported")
+    for label, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]):
+            raise ValueError(
+                f"{name} kernel: {label} strides {x.stride()} need a "
+                "contiguous head dim and 8-element-aligned outer strides"
+            )
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {label} is not 16-byte aligned")
+
+
+def strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The (batch, seq, head) element strides of q, k and v, in that order."""
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float],
+            with_stats: bool):
+    """One kernel launch; returns (o, m, l), m and l None without stats."""
+    check_kernel_inputs("flash_attention", q, k, v, MAX_HEAD_DIM)
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    m = l = None
+    if with_stats:
+        m = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if out.numel() == 0:
+        return out, m, l
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.musev_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, sq, k.shape[1], d, *strides(q, k, v), float(scale),
+            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+            stream,
+        )
+    _build.check(lib, err, "flash_attention")
+    return out, m, l
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
@@ -66,44 +140,54 @@ def flash_attention(
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention kernel takes bfloat16, got {q.dtype}")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel: head dim {d} unsupported")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]):
-            raise ValueError(
-                f"flash_attention kernel: {name} strides {x.stride()} need a "
-                "contiguous head dim and 8-element-aligned outer strides"
-            )
-        if x.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel: {name} is not 16-byte aligned")
-    if scale is None:
-        scale = d**-0.5
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.musev_flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), stream,
-        )
-    _build.check(lib, err, "flash_attention")
+    out, _, _ = _launch(q, k, v, scale, with_stats=False)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_parts(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    part: int = 4096,
+) -> torch.Tensor:
+    """Attention over KV parts of ``part`` rows, merged exactly.
+
+    Each part is one launch on row views of k and v (no copies) that also
+    writes the rows' softmax stats (m, l); the parts' outputs are merged in
+    float32 with the rescaling identity of ``_merge_parts``
+    (flash_attention.py:606-612). Same input rules as ``flash_attention``.
+    """
+    _check(q, k, v)
+    if part < 1:
+        raise ValueError(f"flash_attention_parts: part {part} must be positive")
+    o = m = l = None
+    for lo in range(0, k.shape[1], part):
+        kp, vp = k[:, lo:lo + part], v[:, lo:lo + part]
+        if q.device.type == "cpu":
+            oi, mi, li = flash_attention_stats_plain(q, kp, vp, scale)
+        else:
+            oi, mi, li = _launch(q, kp, vp, scale, with_stats=True)
+            flash_attention_parts.launches += 1
+        if o is None:
+            o, m, l = oi.float(), mi, li
+            continue
+        m_new = torch.maximum(m, mi)
+        # a row with every key masked so far has max -inf: subtract 0 there
+        base = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new), m_new)
+        w1 = torch.exp2(m - base) * l
+        w2 = torch.exp2(mi - base) * li
+        total = w1 + w2
+        denom = torch.where(total > 0, total, torch.ones_like(total))
+        o.mul_(w1[..., None]).add_(oi.float().mul_(w2[..., None])).div_(denom[..., None])
+        m, l = m_new, total
+    if o is None:  # sk = 0
+        return torch.zeros_like(q)
+    return o.to(q.dtype)
+
+
+flash_attention_parts.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -112,6 +196,6 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       ctypes.c_float, p]
+                       ctypes.c_float, p, p, p]
         fn.restype = ctypes.c_int
     return lib

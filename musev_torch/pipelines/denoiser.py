@@ -11,7 +11,7 @@ float32; only the UNet input is cast to the UNet's dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ class DenoiseSpec:
     n_vision_cond: int = 0
     do_cfg: bool = True
     motion_speed: float = 8.0
+    ip_adapter_scale: float = 1.0
     skip_temporal: bool = False
 
 
@@ -44,9 +45,16 @@ def predict_noise(
     text_uc: Optional[torch.Tensor],
     text_c: torch.Tensor,
     condition_latents: Optional[torch.Tensor] = None,
+    vision_clip_emb: Optional[torch.Tensor] = None,
+    refer_embs: Optional[Sequence[torch.Tensor]] = None,
+    mid_refer_emb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One VCPD noise prediction over all windows; latents (B, T, h, w, C).
-    Returns the CFG-combined noise (B, T, h, w, C) in float32."""
+
+    ``vision_clip_emb`` (2B, S_ip, D) holds the IP-Adapter tokens as
+    [uncond; cond]; ``refer_embs`` / ``mid_refer_emb`` (B, N, h, w, c) the
+    ReferenceNet features, shared by both CFG halves (pipeline_controlnet.py
+    :845). Returns the CFG-combined noise (B, T, h, w, C) in float32."""
     b, t, h, w, c = latents.shape
     plan = spec.plan
     n_win, wlen = plan.n_windows, plan.window_size
@@ -60,6 +68,14 @@ def predict_noise(
     reps = 2 if spec.do_cfg else 1
     model_in = torch.cat([win] * reps, dim=0).to(dtype)
 
+    def tile_rows(e: torch.Tensor) -> torch.Tensor:
+        """Align a conditioning tensor to the window-folded CFG batch: (B, ...)
+        repeats to both halves; (2B, ...) under CFG keeps its two halves."""
+        if spec.do_cfg and e.shape[0] == 2 * b:
+            e = e.reshape(2, b, *e.shape[1:]).repeat_interleave(n_win, dim=1)
+            return e.reshape(2 * b * n_win, *e.shape[2:]).to(dtype)
+        return torch.cat([e.repeat_interleave(n_win, 0)] * reps, dim=0).to(dtype)
+
     if spec.do_cfg:
         if text_uc is None:
             raise ValueError("do_cfg needs text_uc")
@@ -71,8 +87,7 @@ def predict_noise(
     cond = gen_index = cond_index = None
     n_vc = spec.n_vision_cond
     if condition_latents is not None and n_vc > 0:
-        cond = torch.cat([condition_latents.repeat_interleave(n_win, 0)] * reps, dim=0)
-        cond = cond.to(dtype)
+        cond = tile_rows(condition_latents)
         cond_index = tuple(range(n_vc))
         gen_index = tuple(range(n_vc, n_vc + wlen))
 
@@ -81,6 +96,10 @@ def predict_noise(
         condition_latents=cond, gen_index=gen_index, cond_index=cond_index,
         do_cfg=spec.do_cfg, motion_speed=spec.motion_speed,
         skip_temporal=spec.skip_temporal,
+        down_block_refer_embs=None if refer_embs is None else [tile_rows(e) for e in refer_embs],
+        mid_block_refer_emb=None if mid_refer_emb is None else tile_rows(mid_refer_emb),
+        vision_clip_emb=None if vision_clip_emb is None else tile_rows(vision_clip_emb),
+        ip_adapter_scale=spec.ip_adapter_scale,
     )
     if cond is not None:
         out = take_frames(out, gen_index)
@@ -104,11 +123,14 @@ def denoise_loop(
     text_uc: Optional[torch.Tensor],
     text_c: torch.Tensor,
     condition_latents: Optional[torch.Tensor] = None,
+    **conditioning,
 ) -> torch.Tensor:
-    """Run every denoise step; returns the final float32 latents."""
+    """Run every denoise step; returns the final float32 latents.
+    ``conditioning``: ``predict_noise``'s ReferenceNet / IP-Adapter inputs."""
     lat = latents.float()
     for i in range(spec.scheduler.num_inference_steps):
-        noise_pred = predict_noise(unet, spec, lat, i, text_uc, text_c, condition_latents)
+        noise_pred = predict_noise(unet, spec, lat, i, text_uc, text_c, condition_latents,
+                                   **conditioning)
         lat, _ = spec.scheduler.step(noise_pred, i, lat)
     return lat
 

@@ -1,10 +1,14 @@
 """Model construction: preset name -> randomly initialized ``MusevModels``.
 
-Counterpart of ``musev_tpu/pipelines/loader.py`` for the ``musev`` preset.
-With no checkpoints in the repository, weights are drawn at full width from a
-seed the way the JAX package's ``fast_init`` draws them (N(0, 0.02) for
-matrices, zero biases, unit norm scales). Checkpoint ingestion and the other
-presets are not ported yet.
+Counterpart of ``musev_tpu/pipelines/loader.py`` for the ``musev`` and
+``musev_referencenet`` presets (``configs/model_registry.py:69-80``; the
+latter adds the ReferenceNet, the ViT-H CLIP vision encoder and the
+IP-Adapter ImageProjModel, 1024 -> 4 x 768). With no checkpoints in the
+repository, weights are drawn at full width from a seed the way the JAX
+package's ``fast_init`` draws them (N(0, 0.02) for matrices, zero biases,
+unit norm scales), the zero-initialised fuse ``to_out`` included.
+Checkpoint ingestion, the ``musev_referencenet_pose`` preset and the
+IP-Adapter-Plus Resampler are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,13 +19,20 @@ import torch
 from torch import nn
 
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel
+from ..models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from ..models.common import GroupNorm, LayerNorm
-from ..models.unet3d import UNet3D, musev_config
+from ..models.ip_adapter import ImageProjModel
+from ..models.referencenet import ReferenceNet2D, ReferenceNetConfig
+from ..models.unet3d import UNet3D, musev_config, musev_referencenet_config
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..utils.tokenizer import HashTokenizer
 from .pipeline import MusevModels
 
-_NOT_PORTED_PRESETS = ("musev_referencenet", "musev_referencenet_pose")
+_PRESETS = ("musev", "musev_referencenet")
+_NOT_PORTED_PRESETS = ("musev_referencenet_pose",)
+# ModelPreset defaults of the referencenet presets (model_registry.py:35-42)
+IP_ADAPTER_CLIP_DIM = 1024
+IP_ADAPTER_TOKENS = 4
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -63,13 +74,19 @@ def build_models(
     device: Union[str, torch.device, None] = None,
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
+    ip_adapter_model_name: str = "IPAdapter",
 ) -> MusevModels:
     """Full-width random-weight models for ``preset`` on ``device`` (default
     CUDA, bf16; float32 on the CPU)."""
     if preset in _NOT_PORTED_PRESETS:
         raise NotImplementedError(f"preset {preset!r} is not ported to musev_torch yet")
-    if preset != "musev":
+    if preset not in _PRESETS:
         raise ValueError(f"unknown preset {preset!r}")
+    if ip_adapter_model_name != "IPAdapter":
+        raise NotImplementedError(
+            f"IP-Adapter model {ip_adapter_model_name!r} is not ported to musev_torch yet "
+            "(only the ImageProjModel of 'IPAdapter')"
+        )
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -78,13 +95,20 @@ def build_models(
     torch.backends.cudnn.allow_tf32 = False
 
     text_cfg = CLIPTextConfig()
+    refnet = preset == "musev_referencenet"
+    unet_cfg = musev_referencenet_config() if refnet else musev_config()
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
-        modules = (UNet3D(musev_config()), AutoencoderKL(VAEConfig()), CLIPTextModel(text_cfg))
+        modules = [UNet3D(unet_cfg), AutoencoderKL(VAEConfig()), CLIPTextModel(text_cfg)]
+        if refnet:
+            modules += [ReferenceNet2D(ReferenceNetConfig()), CLIPVisionModel(CLIPVisionConfig()),
+                        ImageProjModel(IP_ADAPTER_CLIP_DIM, unet_cfg.ip_adapter_dim,
+                                       IP_ADAPTER_TOKENS)]
     for m in modules:
         init_random_(m, gen)
         m.to(dtype).eval()
         _conv_weights_channels_last(m)
-    unet, vae, text = modules
+    unet, vae, text = modules[:3]
+    extra = dict(zip(("referencenet", "clip_vision", "ip_proj"), modules[3:]))
     return MusevModels(unet=unet, vae=vae, text_encoder=text,
-                       tokenizer=HashTokenizer(vocab_size=text_cfg.vocab_size))
+                       tokenizer=HashTokenizer(vocab_size=text_cfg.vocab_size), **extra)

@@ -7,10 +7,13 @@ engine, conditioned on the previous shot's tail. A segmented VAE decode
 closes the run. The pipeline runs on the device its models live on.
 
 Ported: ``text2video`` with the vision-condition, T2I first frame, weighted
-prompt and context-window paths. Not ported yet (raise NotImplementedError):
-ReferenceNet / IP-Adapter / FaceID / ControlNet inputs, condition-image
-redraw, serial-denoise carries, per-step latents, histogram matching, CFG
-rescale, LoRA, textual inversion and LCM.
+prompt and context-window paths, and the ``musev_referencenet`` preset's
+image-to-video conditioning: ReferenceNet features fused into the UNet and
+IP-Adapter image tokens (ImageProjModel) in a second cross-attention, both
+taken from the condition image by default. Not ported yet (raise
+NotImplementedError): FaceID / ControlNet inputs, image-prompt-only text,
+condition-image redraw, serial-denoise carries, per-step latents, histogram
+matching, CFG rescale, LoRA, textual inversion and LCM.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import numpy as np
 import torch
 
 from ..models.clip_text import CLIPTextModel, clip_text_encode
+from ..models.clip_vision import CLIPVisionModel, clip_vision_encode, preprocess_clip_image
+from ..models.ip_adapter import ImageProjModel
+from ..models.referencenet import ReferenceNet2D, referencenet_apply
 from ..models.unet3d import UNet3D
 from ..models.vae import AutoencoderKL, vae_decode_video, vae_encode_video
 from ..ops.context import make_stacked_window_plan, make_window_plan
@@ -39,6 +45,10 @@ class MusevModels:
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: Tokenizer
+    # the musev_referencenet preset's conditioning branches
+    referencenet: Optional[ReferenceNet2D] = None
+    clip_vision: Optional[CLIPVisionModel] = None
+    ip_proj: Optional[ImageProjModel] = None
 
     @property
     def device(self) -> torch.device:
@@ -59,8 +69,6 @@ class VideoResult:
 
 # text2video options whose branches are not ported yet, with their no-op values
 _NOT_PORTED = {
-    "refer_image": None,
-    "ip_adapter_image": None,
     "face_emb": None,
     "control_images": None,
     "redraw_condition_image": False,
@@ -110,7 +118,8 @@ class MusevPipeline:
     def _make_spec(self, num_steps: int, time_size: int, context_frames: int,
                    context_overlap: int, context_schedule: str, guidance_start: float,
                    guidance_end: Optional[float], guidance_method: str,
-                   n_vision_cond: int, motion_speed: float) -> DenoiseSpec:
+                   n_vision_cond: int, motion_speed: float,
+                   ip_adapter_scale: float = 1.0) -> DenoiseSpec:
         ctx = min(context_frames, time_size)
         if context_schedule == "uniform":
             plan = make_stacked_window_plan(num_steps, time_size, ctx,
@@ -129,6 +138,7 @@ class MusevPipeline:
             n_vision_cond=n_vision_cond,
             do_cfg=True,
             motion_speed=motion_speed,
+            ip_adapter_scale=ip_adapter_scale,
         )
 
     def generate_condition_latents(
@@ -150,6 +160,59 @@ class MusevPipeline:
         latents = make_noise(generator, shape, noise_type=noise_type, w_ind_noise=w_ind_noise,
                              device=self.m.device) * spec.scheduler.init_noise_sigma
         return denoise_loop(self.m.unet, spec, latents, text_uc, text_c)
+
+    def _ip_tokens(self, images_bn: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, N, H, W, 3) images -> (cond, uncond) IP-Adapter tokens, each
+        (B, N * K, D): CLIP vision's projected pooled embedding through the
+        ImageProjModel; uncond projects zeros (pipeline_controlnet.py:736-774)."""
+        b, n = images_bn.shape[:2]
+        imgs = torch.as_tensor(np.asarray(images_bn, np.float32), device=self.m.device)
+        pixels = preprocess_clip_image(imgs.reshape(b * n, *imgs.shape[2:]),
+                                       self.m.clip_vision.cfg.image_size)
+        _, pooled = clip_vision_encode(self.m.clip_vision, pixels)
+        cond = self.m.ip_proj(pooled)
+        uncond = self.m.ip_proj(torch.zeros_like(pooled))
+        k = cond.shape[1]
+        return cond.reshape(b, n * k, -1), uncond.reshape(b, n * k, -1)
+
+    def _prepare_reference_conditioning(
+        self, refer_image: Optional[np.ndarray], ip_adapter_image: Optional[np.ndarray],
+        text_c: torch.Tensor,
+    ) -> dict:
+        """ReferenceNet block embeddings and IP-Adapter tokens
+        (get_referencenet_emb :867-964, get_ip_adapter_image_emb :686-780 of
+        the reference pipeline). The ReferenceNet runs once, at timestep 0,
+        with the IP cond tokens as its cross-attention context (the cond text
+        without IP-Adapter); its embeddings are shared by both CFG halves.
+        The IP tokens are stacked [uncond; cond]. Several reference images
+        ((B, N, H, W, 3) or a list) enter the ReferenceNet as N frames and
+        stack their IP tokens along the token axis."""
+        m = self.m
+
+        def to_multi(images) -> np.ndarray:
+            if isinstance(images, (list, tuple)):
+                images = np.stack([np.asarray(i) for i in images], axis=1)
+            images = np.asarray(images)
+            return images[:, None] if images.ndim == 4 else images
+
+        out: dict = {}
+        use_ip = (ip_adapter_image is not None and m.clip_vision is not None
+                  and m.ip_proj is not None)
+        if use_ip:
+            cond_tok, uncond_tok = self._ip_tokens(to_multi(ip_adapter_image))
+        if refer_image is not None and m.referencenet is not None:
+            refer_bn = to_multi(refer_image)
+            b, n_ref = refer_bn.shape[:2]
+            lat = self.encode_images(refer_bn)  # (B, N, h, w, 4)
+            ctx = (cond_tok if use_ip else text_c).to(m.dtype).repeat_interleave(n_ref, 0)
+            down, mid = referencenet_apply(
+                m.referencenet, lat.reshape(b * n_ref, *lat.shape[2:]).to(m.dtype), 0.0, ctx,
+            )
+            out["refer_embs"] = [e.reshape(b, n_ref, *e.shape[2:]) for e in down]
+            out["mid_refer_emb"] = mid.reshape(b, n_ref, *mid.shape[2:])
+        if use_ip and m.unet.cfg.ip_adapter_cross_attn:
+            out["vision_clip_emb"] = torch.cat([uncond_tok, cond_tok]).to(m.dtype)
+        return out
 
     @torch.inference_mode()
     def text2video(
@@ -179,9 +242,16 @@ class MusevPipeline:
         motion_speed: float = 8.0,
         seed: int = 0,
         decode_segment: int = 16,
+        refer_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
+        ip_adapter_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
+        ip_adapter_scale: float = 1.0,
         **unported,
     ) -> VideoResult:
-        """The text/image-to-video driver (run_pipe_text2video, predictor.py:356-750)."""
+        """Text- or image-to-video generation (run_pipe_text2video, predictor.py:356-750).
+
+        With the ReferenceNet / IP-Adapter models present, ``refer_image``
+        defaults to the condition image and ``ip_adapter_image`` to
+        ``refer_image`` (predictor.py:588-636)."""
         for name, value in unported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"text2video() got an unexpected keyword argument {name!r}")
@@ -224,7 +294,13 @@ class MusevPipeline:
             video_num_inference_steps, video_length, context_frames, context_overlap,
             context_schedule, video_guidance_scale, video_guidance_scale_end,
             video_guidance_scale_method, n_vision_condition, motion_speed,
+            ip_adapter_scale=ip_adapter_scale,
         )
+        if refer_image is None and condition_images is not None:
+            refer_image = np.asarray(condition_images)[:, 0]
+        if ip_adapter_image is None and refer_image is not None:
+            ip_adapter_image = refer_image
+        refer_cond = self._prepare_reference_conditioning(refer_image, ip_adapter_image, text_c)
         all_latents: List[torch.Tensor] = []
         for i_batch in range(n_batch):
             noise = make_noise(gen, shape, noise_type=noise_type, w_ind_noise=w_ind_noise,
@@ -235,7 +311,7 @@ class MusevPipeline:
                 noise = img_weight**0.5 * cond_mean + (1.0 - img_weight) ** 0.5 * noise
             latents = noise * spec.scheduler.init_noise_sigma
             out = denoise_loop(self.m.unet, spec, latents, text_uc, text_c,
-                               condition_latents=condition_latents)
+                               condition_latents=condition_latents, **refer_cond)
             full = splice_condition_frames(out, condition_latents, n_vision_condition)
             all_latents.append(full if i_batch == 0 else full[:, n_vision_condition:])
             if n_vision_condition > 0 and not fix_condition_images:

@@ -2,10 +2,11 @@
 
 Inputs come from a seeded numpy RNG and go through both packages in float32.
 The JAX side runs its Pallas kernels in interpret mode where they have one
-(``_flash_carry``, ``short_attention_packed``); ``_unroll_kernel`` has none,
-so ``ops.attention._xla_sdpa`` is its plain reference. Tolerance 2e-5
-absolute and relative: float32 softmax attention at these sizes, summed in
-another order by each framework.
+(``_flash_carry``, ``_flash_stream``, ``short_attention_packed``);
+``_unroll_kernel`` has none, so ``ops.attention._xla_sdpa`` is its plain
+reference, also for the split-merge route. Tolerance 2e-5 absolute and
+relative: float32 softmax attention at these sizes, summed in another order
+by each framework.
 """
 
 import jax.numpy as jnp
@@ -18,7 +19,14 @@ from musev_tpu.ops.pallas import flash_attention as jfa
 from musev_tpu.ops.pallas.short_attention import short_attention_packed as j_short
 from musev_torch.ops import attention as tattn
 from musev_torch.ops.kernels import _build
-from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+from musev_torch.ops.kernels.flash_attention import (
+    LOG2E,
+    flash_attention,
+    flash_attention_parts,
+    flash_attention_plain,
+    flash_attention_stats_plain,
+)
+from musev_torch.ops.kernels.flash_stream import flash_stream
 from musev_torch.ops.kernels.short_attention import (
     short_attention_packed,
     short_attention_plain,
@@ -92,6 +100,62 @@ def test_short_plain_matches_pallas(n, t, c, heads, kv_len):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("sk,d,parts", [
+    (5300, 40, [4096]),  # past the resident-KV test: parts of 4096 + 1204 rows
+    (1400, 512, [1296]),  # the VAE head dim: 1296 + 104
+    (1000, 40, []),  # passes the test: one kernel over the whole KV, no split
+])
+def test_split_route_matches_xla_sdpa(monkeypatch, sk, d, parts):
+    """``sdpa`` under MUSEV_FLASH_LONGKV=split splits where the JAX dispatcher
+    splits, with its part size, and merges to the exact attention."""
+    q, k, v = _qkv(sk + d, (1, 24, 1, d), (1, sk, 1, d))
+    want = np.asarray(_xla_sdpa(*map(jnp.asarray, (q, k, v))))
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw["part"])
+        return flash_attention_parts(*args, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_parts", spy)
+    monkeypatch.setenv("MUSEV_FLASH_LONGKV", "split")
+    got = tattn.sdpa(*map(torch.from_numpy, (q, k, v)))
+    assert calls == parts
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    monkeypatch.setenv("MUSEV_FLASH_LONGKV", "stream")
+    with pytest.raises(ValueError, match="MUSEV_FLASH_LONGKV"):
+        tattn.sdpa(*map(torch.from_numpy, (q, k, v)))
+
+
+def test_stats_plain_match_numpy_formula():
+    q, k, v = _qkv(11, (2, 5, 3, 8), (2, 9, 3, 8))
+    scale = 0.3
+    o, m, l = flash_attention_stats_plain(*map(torch.from_numpy, (q, k, v)), scale)
+    s = np.einsum("bqhd,bkhd->bqhk", q.astype(np.float64), k) * scale * LOG2E
+    want_m = s.max(-1)
+    want_l = np.exp2(s - want_m[..., None]).sum(-1)
+    np.testing.assert_allclose(m.numpy(), want_m, **TOL)
+    np.testing.assert_allclose(l.numpy(), want_l, **TOL)
+    np.testing.assert_allclose(o.numpy(), flash_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), scale).numpy(), **TOL)
+
+
+def test_flash_stream_plain_matches_pallas_stream():
+    """Drives ``_flash_stream`` (interpret mode) as tests/test_flash_attention.py
+    does: a ragged KV tail (1100 keys in 256-row sub-blocks), 2 heads."""
+    q, k, v = _qkv(5, (1, 64, 2, 40), (1, 1100, 2, 40))
+    scale = 40**-0.5
+
+    def to_bh(x, rows):
+        x = jnp.asarray(x).transpose(0, 2, 1, 3).reshape(2, x.shape[1], 40)
+        return jfa._pad_rows(x, rows)
+
+    out = jfa._flash_stream(to_bh(q, 64), to_bh(k, 1280), to_bh(v, 1280), float(scale),
+                            64, 256, 1100, 32, interpret=True)
+    want = np.asarray(out[:, :, :40]).reshape(1, 2, 64, 40).transpose(0, 2, 1, 3)
+    got = flash_stream(*map(torch.from_numpy, (q, k, v)), scale)  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_short_attention_takes_fused_projection_views():
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((5, 13, 3 * 32), dtype=np.float32))
@@ -102,10 +166,13 @@ def test_short_attention_takes_fused_projection_views():
 
 def test_wrappers_count_only_kernel_launches():
     x = torch.zeros(1, 4, 1, 8)
-    before = (flash_attention.launches, short_attention_packed.launches)
+    wrappers = (flash_attention, flash_attention_parts, flash_stream, short_attention_packed)
+    before = [w.launches for w in wrappers]
     flash_attention(x, x, x)
+    flash_attention_parts(x, x, x, part=3)
+    flash_stream(x, x, x)
     short_attention_packed(x[:, :, 0], x[:, :, 0], x[:, :, 0], 1)
-    assert (flash_attention.launches, short_attention_packed.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 def test_wrappers_reject_misuse():
@@ -118,12 +185,16 @@ def test_wrappers_reject_misuse():
     with pytest.raises(ValueError):
         short_attention_packed(x[:, :, 0], x[:, :, 0], x[:, :, 0], 1, kv_len=0)
     meta = torch.zeros(1, 4, 2, 8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(meta, meta, meta)
+    for wrapper in (flash_attention, flash_attention_parts, flash_stream):
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(meta, meta, meta)
+    with pytest.raises(ValueError):
+        flash_attention_parts(x, x, x, part=0)
 
 
 def test_kernel_library_name_tracks_source():
     a = _build.library_path("flash_attention")
     b = _build.library_path("short_attention")
-    assert a.parent == b.parent == _build.BUILD_DIR
-    assert a.name.startswith("libflash_attention-") and a != b
+    c = _build.library_path("flash_stream")
+    assert a.parent == b.parent == c.parent == _build.BUILD_DIR
+    assert a.name.startswith("libflash_attention-") and len({a, b, c}) == 3

@@ -13,7 +13,14 @@ error under 2e-2 of the largest output.
 import pytest
 import torch
 
-from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_plain
+from musev_torch.ops.kernels.flash_attention import (
+    _launch,
+    flash_attention,
+    flash_attention_parts,
+    flash_attention_plain,
+    flash_attention_stats_plain,
+)
+from musev_torch.ops.kernels.flash_stream import flash_stream
 from musev_torch.ops.kernels.short_attention import (
     short_attention_packed,
     short_attention_plain,
@@ -69,6 +76,48 @@ def test_cuda_flash_matches_plain(cuda, fused, sq, sk, d):
     else:
         (q,), (k,), (v,) = rand(sq, 1), rand(sk, 1), rand(sk, 1)
     assert_close_scaled(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+def _views(cuda, sq, sk, d, heads=2):
+    """q beside a fused k|v product, as the ReferenceNet fuse and the
+    ReferenceOnly cond half lay them out."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, sq, heads * d, device=cuda, generator=g).bfloat16()
+    kv = torch.randn(2, sk, 2 * heads * d, device=cuda, generator=g).bfloat16()
+    k, v = kv.chunk(2, dim=-1)
+    return tuple(t.unflatten(-1, (heads, d)) for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d", [(100, 300, 40), (70, 129, 80), (33, 200, 512)])
+def test_cuda_flash_stats_match_plain(cuda, sq, sk, d):
+    """The kernel's (m, l) outputs: m in log2 units to 1e-2 absolute (bf16
+    logits), l to 1e-2 relative."""
+    q, k, v = _views(cuda, sq, sk, d)
+    o, m, l = _launch(q, k, v, None, with_stats=True)
+    want_o, want_m, want_l = flash_attention_stats_plain(q, k, v)
+    assert_close_scaled(o, want_o)
+    assert (m - want_m).abs().max().item() <= 1e-2
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk,d,part", [(1100, 40, 512), (600, 512, 256), (300, 80, 4096)])
+def test_cuda_parts_match_plain(cuda, sk, d, part):
+    q, k, v = _views(cuda, 77, sk, d)
+    before = flash_attention_parts.launches
+    got = flash_attention_parts(q, k, v, part=part)
+    assert flash_attention_parts.launches - before == -(-sk // part)
+    assert_close_scaled(got, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d", [(100, 1100, 40), (257, 257, 80), (130, 70, 160), (5, 3, 40)])
+def test_cuda_flash_stream_matches_plain(cuda, sq, sk, d):
+    q, k, v = _views(cuda, sq, sk, d)
+    assert_close_scaled(flash_stream(q, k, v), flash_attention_plain(q, k, v))
+    with pytest.raises(ValueError):
+        flash_stream(*(torch.zeros(1, 8, 1, 512, device=cuda, dtype=torch.bfloat16),) * 3)
 
 
 @pytest.mark.cuda

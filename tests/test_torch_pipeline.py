@@ -114,9 +114,12 @@ def test_text2video_on_cpu_gives_jax_shapes(models):
 
 def test_text2video_refuses_unported_branches(models):
     _, port = models
-    with pytest.raises(NotImplementedError, match="refer_image"):
+    with pytest.raises(NotImplementedError, match="face_emb"):
         MusevPipeline(port).text2video("a cat", height=32, width=32,
-                                       refer_image=np.zeros((1, 32, 32, 3)))
+                                       face_emb=np.zeros((1, 512)))
+    with pytest.raises(NotImplementedError, match="control_images"):
+        MusevPipeline(port).text2video("a cat", height=32, width=32,
+                                       control_images=np.zeros((1, 13, 32, 32, 3)))
 
 
 def test_build_models_needs_cuda_unless_cpu_is_asked():
@@ -124,5 +127,9 @@ def test_build_models_needs_cuda_unless_cpu_is_asked():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_models("musev")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_models("musev_referencenet")
     with pytest.raises(NotImplementedError):
-        build_models("musev_referencenet", device="cpu")
+        build_models("musev_referencenet_pose", device="cpu")
+    with pytest.raises(NotImplementedError, match="IPAdapterPlus"):
+        build_models("musev_referencenet", device="cpu", ip_adapter_model_name="IPAdapterPlus")

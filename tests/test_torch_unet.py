@@ -112,8 +112,9 @@ def test_temporal_conv_layer_matches_jax(unets):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **MODULE_TOL)
 
 
-# the options the referencenet preset flips (its ReferenceNet/IP branches aside)
-# plus real AdaIN; they add no parameters, so the same weights serve
+# the options the referencenet preset flips (its ReferenceNet/IP branches are
+# held in test_torch_referencenet.py) plus real AdaIN; they add no
+# parameters, so the same weights serve
 FLAGS = dict(use_anivv1_cfg=True, resnet_skip_time_act=True, keep_vision_condition=True,
              keep_content_condition=True, adain_fix=True)
 
@@ -200,4 +201,4 @@ def test_state_dict_keys_match_reference_keys(full):
 
 def test_unet_config_refuses_unported_options():
     with pytest.raises(TypeError):
-        UNet3DConfig(**TINY_UNET, need_refer_emb=True)
+        UNet3DConfig(**TINY_UNET, need_ip_adapter_face=True)
