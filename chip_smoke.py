@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 
-1. build: compile the port's three CUDA kernels from ``musev_torch/csrc``
+1. build: compile the port's four CUDA sources from ``musev_torch/csrc``
    (all nvcc at once) and print the card's name and power limit;
 2. kernels: at the paths' shapes (576^2, 24 frames, 12-frame windows
    overlapping by 4, one vision-condition frame, CFG: 78 frame rows, 8
@@ -16,7 +16,10 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    PyTorch library call: ``flash_attention`` at every site, the split-merge
    route ``flash_attention_parts`` at every site whose KV the JAX package
    splits, ``flash_stream`` at every site of head dim <= 160, the short
-   kernel at the temporal sites;
+   kernel at the temporal sites; the pivots (``pivot_rows`` without and
+   with the GroupNorm apply, ``unpivot_rows``) at the temporal sites of the
+   window batch and of the pose path, bit for bit (the GroupNorm apply
+   within its rounding bound);
 3. path ``musev``: ``build_models("musev")`` at full width with random bf16
    weights, then ``MusevPipeline.text2video`` at 576x576, 24 frames, with the
    T2I first frame, at the default 10 video + 30 T2I steps; the kernels'
@@ -25,11 +28,17 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 4. path ``musev_referencenet``: the same for image-to-video from a seeded
    random 576x576 condition image, which is also the ReferenceNet and
    IP-Adapter image, at the default 10 video steps;
-5. split: one full-width ``musev_referencenet`` UNet call under
+5. path ``musev_referencenet_pose``: ``build_models`` at full width, then
+   ``MusevPipeline.video2video`` of 24 seeded random 576x576 pose frames
+   (``video_is_middle``) in 2 shots of 12, from a seeded random condition
+   image (also the ReferenceNet and IP-Adapter image), 10 video steps; the
+   ControlNet runs once per UNet call; a second run on zeroed pose frames
+   must change the output; a third is profiled;
+6. split: one full-width ``musev_referencenet`` UNet call under
    ``MUSEV_FLASH_LONGKV=split`` against the same call under ``carry``,
    beside the call's sensitivity to a 1e-3 perturbation of its input, at
    the path's weights and, for the gate, at weights drawn at N(0, 0.01);
-6. reference: one UNet call of a narrow config on the card against the same
+7. reference: one UNet call of a narrow config on the card against the same
    weights in float32 on the CPU (the plain path).
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last the line
@@ -82,6 +91,16 @@ SHORT_SITES = [
     ("L2 temporal", 6 * 18 * 18, 13, 1280, 8),
     ("L3 temporal (mid)", 6 * 9 * 9, 13, 1280, 8),
 ]
+# (site, b, T, HW, C): the temporal transformers' pivots, b = rows of the
+# window batch (6) or of the pose path's one window per shot (2 CFG halves)
+PIVOT_SITES = [
+    ("L0 temporal", 6, 13, 72 * 72, 320),
+    ("L1 temporal", 6, 13, 36 * 36, 640),
+    ("L2 temporal", 6, 13, 18 * 18, 1280),
+    ("L3 temporal (mid)", 6, 13, 9 * 9, 1280),
+    ("pose L0 temporal", 2, 13, 72 * 72, 320),
+]
+POSE_HEAD = "pose L0 temporal"  # the reported site of the pivots
 # the reference's default operating point (bench.py:48-57): no step cut needed
 T2V_ARGS = dict(
     prompt="a girl dancing on the beach", negative_prompt="bad quality",
@@ -89,8 +108,17 @@ T2V_ARGS = dict(
     context_frames=12, context_overlap=4,
     video_num_inference_steps=10, num_inference_steps=30, seed=0,
 )
+# the reference's video2video defaults (predictor.py:760-1290): Pose2Video
+# from 24 pose frames in shots of 12 (frames and condition image in main())
+V2V_ARGS = dict(
+    prompt="a girl dancing on the beach", negative_prompt="bad quality",
+    video_is_middle=True, time_size=12, n_vision_condition=1, context_frames=12,
+    context_overlap=4, video_num_inference_steps=10, video_guidance_scale=3.5,
+    controlnet_conditioning_scale=1.0, seed=0,
+)
 VIDEO_SHAPE = (1, 25, 576, 576, 3)  # the JAX pipeline's: condition frame + 24
-KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention")
+KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention",
+           "pivot_rows", "pivot_rows_gn", "unpivot_rows")
 # Kernel against plain version, both scaled to what is compared: the kernels
 # round P and the output to bf16 (8-bit mantissa, relative rounding error up
 # to 2^-9 ~ 2e-3 per element), the plain versions keep float32 throughout.
@@ -158,30 +186,34 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_wrappers():
-    """Each kernel's wrapper by its name in the ``kernels`` line."""
+def kernel_counters():
+    """Each kernel's (wrapper, launch-count attribute) by its name in the
+    ``kernels`` line; ``pivot_rows`` counts K5 and K6 apart."""
     from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_parts
     from musev_torch.ops.kernels.flash_stream import flash_stream
+    from musev_torch.ops.kernels.pivot import pivot_rows, unpivot_rows
     from musev_torch.ops.kernels.short_attention import short_attention_packed
 
-    return dict(zip(KERNELS, (flash_attention, flash_attention_parts, flash_stream,
-                              short_attention_packed)))
+    return dict(zip(KERNELS, ((flash_attention, "launches"), (flash_attention_parts, "launches"),
+                              (flash_stream, "launches"), (short_attention_packed, "launches"),
+                              (pivot_rows, "launches"), (pivot_rows, "gn_launches"),
+                              (unpivot_rows, "launches"))))
 
 
 def zero_counts() -> None:
-    for w in kernel_wrappers().values():
-        w.launches = 0
+    for w, attr in kernel_counters().values():
+        setattr(w, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    return {name: getattr(w, attr) for name, (w, attr) in kernel_counters().items()}
 
 
 def phase_build():
     from musev_torch.ops.kernels import _build
 
     t0 = time.time()
-    _build.build(["flash_attention", "short_attention", "flash_stream"])
+    _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -262,14 +294,77 @@ def phase_kernels(torch):
         print(f"short_attention {site} (N,T,C,heads)={(n, t, c, heads)}: {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
         del qkv, q, k, v, qt, kt, vt, out, want
+    pivot_sites(torch, gen, rows)
     print(f"phase kernels: {time.time() - t0:.1f} s")
     return rows
 
 
-def phase_path(torch, preset: str, args: dict, need: tuple):
-    """``text2video`` of ``preset`` at full width; fails unless the video
-    has the JAX pipeline's shape, is finite in [0, 1], and every kernel in
-    ``need`` launched. Returns (record, models)."""
+def pivot_sites(torch, gen, rows: dict) -> None:
+    """K5, K6 and K7 at PIVOT_SITES: x is the contiguous (b, T, HW, C) video
+    and scale/shift the (b, C) GroupNorm affine broadcast over T, as the
+    temporal transformer gives them; y the contiguous (b, HW, T, C) rows.
+    K5 and K7 must match their plain versions bit for bit; K6 rounds its
+    float32 product apart from the add where the plain version may fuse
+    them, so it may differ by one bf16 ulp of the output plus one float32
+    ulp of x * scale. The bound is bytes: x read and y written once (and
+    scale, shift as (b, T, C) float32)."""
+    from musev_torch.ops.kernels.pivot import (
+        pivot_rows,
+        pivot_rows_plain,
+        unpivot_rows,
+        unpivot_rows_plain,
+    )
+
+    def ulp(x, mantissa_bits):
+        return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - mantissa_bits)
+
+    for site, b, t, hw, c in PIVOT_SITES:
+        x = torch.randn(b, t, hw, c, device="cuda", generator=gen, dtype=torch.bfloat16)
+        y = torch.randn(b, hw, t, c, device="cuda", generator=gen, dtype=torch.bfloat16)
+        scale, shift = (torch.randn(b, 1, c, device="cuda", generator=gen).expand(b, t, c)
+                        for _ in range(2))
+        nbytes = 2.0 * 2 * x.numel()
+        cases = [
+            ("pivot_rows", lambda: pivot_rows(x), lambda: pivot_rows_plain(x),
+             lambda: x.transpose(1, 2).contiguous(), nbytes),
+            ("pivot_rows_gn", lambda: pivot_rows(x, scale, shift),
+             lambda: pivot_rows_plain(x, scale, shift), None, nbytes + 2.0 * 4 * b * t * c),
+            ("unpivot_rows", lambda: unpivot_rows(y), lambda: unpivot_rows_plain(y),
+             lambda: y.transpose(1, 2).contiguous(), nbytes),
+        ]
+        for name, fn, plain, lib, nb in cases:
+            got, want = fn(), plain()
+            err = (got.float() - want.float()).abs()
+            if name == "pivot_rows_gn":
+                product = (x.float() * scale[:, :, None]).transpose(1, 2)
+                ok = bool((err <= ulp(want.float(), 7) + ulp(product, 23)).all())
+                rule = "<= 1 bf16 ulp + 1 fp32 ulp of x*scale"
+                del product
+            else:
+                ok = torch.equal(got, want)
+                rule = "bit for bit"
+            max_err = err.max().item()
+            del got, want, err
+            print(f"{name} {site}: max abs err {max_err:.2e} ({rule}: {'ok' if ok else 'FAILED'})")
+            if not ok:
+                fail(f"{name} disagrees with its plain version at {site}")
+            ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
+            lib_ms = None if lib is None else cuda_ms(torch, lib)
+            bms, by = bound_ms(0.0, nb)
+            rows[name].append(dict(site=site, shape=[b, t, hw, c], max_abs_err=max_err, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                                   bound_by=by))
+            lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+            print(f"{name} {site} (b,T,HW,C)={(b, t, hw, c)}: {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, transpose().contiguous() {lib_txt}, bound {bms:.3f} ms "
+                  f"({by})")
+        del x, y, scale, shift
+
+
+def phase_path(torch, preset: str, method: str, args: dict, need: tuple):
+    """``MusevPipeline.<method>`` of ``preset`` at full width; fails unless
+    the video has the JAX pipeline's shape, is finite in [0, 1], and every
+    kernel in ``need`` launched. Returns (record, models, result)."""
     import numpy as np
 
     from musev_torch.pipelines.loader import build_models
@@ -279,38 +374,62 @@ def phase_path(torch, preset: str, args: dict, need: tuple):
     models = build_models(preset, seed=0)
     torch.cuda.synchronize()
     t_build = time.time() - t0
-    pipe = MusevPipeline(models)
+    run = getattr(MusevPipeline(models), method)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t1 = time.time()
-    res = pipe.text2video(**args)
+    res = run(**args)
     torch.cuda.synchronize()
     t_run = time.time() - t1
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     vid = res.videos
-    print(f"phase path {preset}: build_models {t_build:.1f} s, text2video {t_run:.2f} s, "
+    print(f"phase path {preset}: build_models {t_build:.1f} s, {method} {t_run:.2f} s, "
           f"peak device memory {peak_gb:.1f} GB, launches {launches}, video {vid.shape}")
     if vid.shape != VIDEO_SHAPE:
-        fail(f"{preset} text2video gave shape {vid.shape}, expected {VIDEO_SHAPE}")
+        fail(f"{preset} {method} gave shape {vid.shape}, expected {VIDEO_SHAPE}")
     if not np.isfinite(vid).all() or vid.min() < 0.0 or vid.max() > 1.0:
-        fail(f"{preset} text2video gave non-finite values or values outside [0, 1]")
+        fail(f"{preset} {method} gave non-finite values or values outside [0, 1]")
     for name in need:
         if launches[name] <= 0:
             fail(f"the {preset} path launched {name} no time")
-    profile = profile_path(torch, pipe, args)
-    return dict(build_models_s=t_build, text2video_s=t_run, peak_gb=peak_gb,
-                launches=launches, profile=profile), models
+    profile, again = profile_path(torch, run, args)
+    rerun_change = float(np.abs(again.latents - res.latents).max())
+    print(f"phase path {preset}: the profiled rerun moves the latents by up to "
+          f"{rerun_change:.3e}")
+    return dict(method=method, build_models_s=t_build, clip_s=t_run, peak_gb=peak_gb,
+                launches=launches, rerun_latent_change=rerun_change, profile=profile), models, res
 
 
-def profile_path(torch, pipe, args) -> dict:
-    """A second text2video under torch.profiler: device time by kernel and
-    the device's busy share of the wall time (single stream, no overlap)."""
+def phase_pose_control(torch, models, args: dict, res, rerun_change: float) -> float:
+    """The pose path again on zeroed pose frames: fails unless the latents
+    move by more than 1e-3 and by more than ten times the same run's rerun
+    difference, so that the ControlNet acts. Returns the largest change."""
+    import numpy as np
+
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    t0 = time.time()
+    zeroed = MusevPipeline(models).video2video(
+        **dict(args, video_frames=np.zeros_like(args["video_frames"])))
+    change = float(np.abs(zeroed.latents - res.latents).max())
+    floor = max(1e-3, 10 * rerun_change)
+    print(f"phase pose control: zeroed pose frames move the latents by up to {change:.3e} "
+          f"(must exceed {floor:.3e}), {time.time() - t0:.1f} s")
+    if not change > floor:
+        fail("zeroing the pose frames left the video2video output unchanged")
+    return change
+
+
+def profile_path(torch, run, args):
+    """The path once more under torch.profiler: device time by kernel and
+    the device's busy share of the wall time (single stream, no overlap).
+    Returns (record, the run's result)."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipe.text2video(**args)
+        res = run(**args)
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -319,16 +438,17 @@ def profile_path(torch, pipe, args) -> dict:
     busy_ms = sum(r[1] for r in rows)
     if busy_ms == 0:
         print("phase path profile: the profiler recorded no device time (not measured)")
-        return dict(wall_ms=wall_ms, device_ms=None)
+        return dict(wall_ms=wall_ms, device_ms=None), res
     print(f"phase path profile: wall {wall_ms:.0f} ms (profiled), device busy "
           f"{busy_ms:.0f} ms = {busy_ms / wall_ms:.1%}; top kernels:")
     for key, ms, n in rows[:12]:
         print(f"  {ms:9.1f} ms {ms / busy_ms:6.1%} x{n:<6d} {key[:110]}")
     mine = {name: sum(r[1] for r in rows if name in r[0])
-            for name in ("flash_fwd_kernel", "flash_stream_kernel", "short_attn_kernel")}
+            for name in ("flash_fwd_kernel", "flash_stream_kernel", "short_attn_kernel",
+                         "relayout_kernel")}
     print(f"  port kernels: {mine}")
     return dict(wall_ms=wall_ms, device_ms=busy_ms, port_kernels_ms=mine,
-                top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]])
+                top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]]), res
 
 
 def phase_split(torch, models) -> dict:
@@ -449,28 +569,36 @@ def main() -> None:
     t0 = time.time()
     card = phase_build()
     rows = phase_kernels(torch)
+    need = ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows")
     paths = {}
-    paths["musev"], models = phase_path(torch, "musev", T2V_ARGS,
-                                        need=("flash_attention", "short_attention"))
+    paths["musev"], models, _ = phase_path(torch, "musev", "text2video", T2V_ARGS, need)
     del models
     torch.cuda.empty_cache()
-    image = np.random.default_rng(0).uniform(0, 255, (1, 1, 576, 576, 3)).astype(np.float32)
-    paths["musev_referencenet"], models = phase_path(
-        torch, "musev_referencenet", dict(T2V_ARGS, condition_images=image),
-        need=("flash_attention", "short_attention"))
+    rng = np.random.default_rng(0)
+    image = rng.uniform(0, 255, (1, 1, 576, 576, 3)).astype(np.float32)
+    paths["musev_referencenet"], models, _ = phase_path(
+        torch, "musev_referencenet", "text2video", dict(T2V_ARGS, condition_images=image), need)
     split = phase_split(torch, models)
     del models
+    torch.cuda.empty_cache()
+    pose_frames = rng.integers(0, 256, (24, 576, 576, 3), dtype=np.uint8)
+    v2v_args = dict(V2V_ARGS, video_frames=pose_frames, condition_images=image,
+                    refer_image=image[:, 0], ip_adapter_image=image[:, 0])
+    pose = "musev_referencenet_pose"
+    paths[pose], models, res = phase_path(torch, pose, "video2video", v2v_args, need)
+    paths[pose]["zeroed_pose_latent_change"] = phase_pose_control(
+        torch, models, v2v_args, res, paths[pose]["rerun_latent_change"])
+    del models, res
     torch.cuda.empty_cache()
     ref_err = phase_reference(torch)
 
     # launches: this slice's path for the kernels it runs; the split UNet call
     # for the split-merge route, which no path takes under the default carry
     split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
-    path_counts = dict(paths["musev_referencenet"]["launches"],
+    path_counts = dict(paths[pose]["launches"],
                        flash_attention_parts=split_counts["flash_attention_parts"])
-    by_path = {name: {"musev": paths["musev"]["launches"][name],
-                      "musev_referencenet": paths["musev_referencenet"]["launches"][name],
-                      "split UNet call": split_counts[name]}
+    by_path = {name: dict({p: paths[p]["launches"][name] for p in paths},
+                          **{"split UNet call": split_counts[name]})
                for name in KERNELS}
 
     def entry(name, source, replaces, head_site=None, **extra):
@@ -484,6 +612,7 @@ def main() -> None:
                     site=head["site"], sites=sites)
 
     flash_py = "musev_tpu/ops/pallas/flash_attention.py"
+    pivot_py = "scripts/bench_fused_transpose.py"
     kernels = [
         entry("flash_attention", "musev_torch/csrc/flash_attention.cu", f"{flash_py}:77,297"),
         entry("flash_attention_parts", "musev_torch/csrc/flash_attention.cu", f"{flash_py}:77",
@@ -492,6 +621,10 @@ def main() -> None:
               LONGKV_HEAD),
         entry("short_attention", "musev_torch/csrc/short_attention.cu",
               "musev_tpu/ops/pallas/short_attention.py:39"),
+        entry("pivot_rows", "musev_torch/csrc/pivot.cu", f"{pivot_py}:70", POSE_HEAD,
+              variant="without scale/shift; the paths fuse the GroupNorm apply (K6)"),
+        entry("pivot_rows_gn", "musev_torch/csrc/pivot.cu", f"{pivot_py}:75", POSE_HEAD),
+        entry("unpivot_rows", "musev_torch/csrc/pivot.cu", f"{pivot_py}:113", POSE_HEAD),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -12,8 +12,10 @@ channels-last contiguous tensors and a convolution sees them as NCHW views in
 made around convolutions. Precision on the card: bf16 activations, float32
 GroupNorm/LayerNorm statistics, float32 latents and scheduler math.
 
-Kernels: the Pallas TPU kernels on the text-to-video path are hand-written
-CUDA C++ for sm_90a under ``csrc/``, built by nvcc at first use
-(``ops/kernels/_build.py``) and bound with ctypes:
-``flash_attention.cu`` (Pallas K1 + K3) and ``short_attention.cu`` (K4).
+Kernels: every Pallas TPU kernel of the repository is hand-written CUDA C++
+for sm_90a under ``csrc/``, built by nvcc at first use
+(``ops/kernels/_build.py``) and bound with ctypes: ``flash_attention.cu``
+(Pallas K1 + K3, with the K1s softmax stats), ``flash_stream.cu`` (K2),
+``short_attention.cu`` (K4) and ``pivot.cu`` (the temporal-rows pivots K5,
+K6 and K7).
 """

@@ -15,10 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def group_norm(
+def group_norm_scale_shift(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
-) -> torch.Tensor:
-    """GroupNorm over the last (channel) axis of a channels-last tensor."""
+):
+    """The float32 (N, C) ``scale`` and ``shift`` of GroupNorm over the last
+    (channel) axis of a channels-last tensor: the normalised ``x`` is
+    ``x * scale + shift`` per (n, c), statistics taken over each sample."""
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"group_norm: channels {c} not divisible by groups {num_groups}")
@@ -26,7 +28,17 @@ def group_norm(
     var, mean = torch.var_mean(xf, dim=(1, 3), correction=0, keepdim=True)
     scale = torch.rsqrt(var + eps) * weight.float().view(1, 1, num_groups, -1)
     shift = bias.float().view(1, 1, num_groups, -1) - mean * scale
-    return torch.addcmul(shift, xf, scale).reshape(x.shape).to(x.dtype)
+    return scale.reshape(n, c), shift.reshape(n, c)
+
+
+def group_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
+) -> torch.Tensor:
+    """GroupNorm over the last (channel) axis of a channels-last tensor."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(n, -1, c).float()
+    scale, shift = group_norm_scale_shift(xf, weight, bias, num_groups, eps)
+    return torch.addcmul(shift[:, None], xf, scale[:, None]).reshape(x.shape).to(x.dtype)
 
 
 def layer_norm(
@@ -46,6 +58,10 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+
+    def scale_shift(self, x: torch.Tensor):
+        """``group_norm_scale_shift`` with this module's parameters."""
+        return group_norm_scale_shift(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 class LayerNorm(nn.Module):

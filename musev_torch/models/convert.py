@@ -44,3 +44,11 @@ def clip_vision_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
 
 def image_proj_from_jax(params) -> Dict[str, torch.Tensor]:
     return _to_torch(sd_weights.export_state_dict(sd_weights.image_proj_key_map(), params))
+
+
+def controlnet_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.controlnet_key_map(cfg), params))
+
+
+def pose_guider_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.pose_guider_key_map(cfg), params))

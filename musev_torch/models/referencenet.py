@@ -74,6 +74,35 @@ class ReferenceNet2D(nn.Module):
         ])
 
 
+def trunk_apply(
+    net: ReferenceNet2D, x: torch.Tensor, timestep, context: torch.Tensor
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The down and mid blocks over ``x`` (N, h, w, c0), the stem's output, at
+    a scalar ``timestep`` with cross-attention ``context`` (N, S, D). Returns
+    the 12 skip features (the stem, every down layer and downsampler) and
+    the mid-block output, each (N, h', w', c')."""
+    n = x.shape[0]
+    ch0 = net.cfg.block_out_channels[0]
+    ts = torch.as_tensor(timestep, dtype=torch.float32, device=x.device).reshape(-1)
+    temb = net.time_embedding(sinusoidal_embedding(ts.expand(n), ch0).to(x.dtype))
+    kw = dict(num_frames=1, cond_index=None, do_cfg=False, reference_attn=False)
+    feats = [x]
+    for block in net.down_blocks:
+        for j, resnet in enumerate(block.resnets):
+            x = resnet(x, temb)
+            if hasattr(block, "attentions"):
+                x = block.attentions[j](x, context, **kw)
+            feats.append(x)
+        if hasattr(block, "downsamplers"):
+            x = block.downsamplers[0](x)
+            feats.append(x)
+    mid = net.mid_block
+    x = mid.resnets[0](x, temb)
+    x = mid.attentions[0](x, context, **kw)
+    x = mid.resnets[1](x, temb)
+    return feats, x
+
+
 def referencenet_apply(
     net: ReferenceNet2D, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -86,25 +115,5 @@ def referencenet_apply(
     every down layer and downsampler) and the mid-block embedding, each
     (B, 1, h, w, c) with a singleton time axis (referencenet.py:1017-1034).
     """
-    b = sample.shape[0]
-    ch0 = net.cfg.block_out_channels[0]
-    ts = torch.as_tensor(timestep, dtype=torch.float32, device=sample.device).reshape(-1)
-    temb = net.time_embedding(sinusoidal_embedding(ts.expand(b), ch0).to(sample.dtype))
-    kw = dict(num_frames=1, cond_index=None, do_cfg=False, reference_attn=False)
-
-    x = net.conv_in(sample)
-    embs = [x]
-    for block in net.down_blocks:
-        for j, resnet in enumerate(block.resnets):
-            x = resnet(x, temb)
-            if hasattr(block, "attentions"):
-                x = block.attentions[j](x, encoder_hidden_states, **kw)
-            embs.append(x)
-        if hasattr(block, "downsamplers"):
-            x = block.downsamplers[0](x)
-            embs.append(x)
-    mid = net.mid_block
-    x = mid.resnets[0](x, temb)
-    x = mid.attentions[0](x, encoder_hidden_states, **kw)
-    x = mid.resnets[1](x, temb)
-    return [e[:, None] for e in embs], x[:, None]
+    embs, mid = trunk_apply(net, net.conv_in(sample), timestep, encoder_hidden_states)
+    return [e[:, None] for e in embs], mid[:, None]

@@ -2,13 +2,15 @@
 
 A copy of the key-map part of ``musev_tpu/models/sd_weights.py`` (the port
 imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map``,
-``clip_text_key_map``, ``referencenet_key_map``, ``clip_vision_key_map`` and
-``image_proj_key_map`` yield ``(torch_key, tree_path, kind)`` triples, and
-``export_state_dict`` reads a JAX-layout param tree (nested dicts/lists of
-arrays) through a map into torch-layout numpy arrays: HWIO -> OIHW for
-convolutions, (in, out) -> (out, in) for linears, (kT, 1, I, O) ->
-(O, I, kT, 1, 1) for the temporal conv. ``ip_adapter_site_paths`` names the
-attn2 modules in the numbering of an ``ip_adapter.bin``. Numpy only.
+``clip_text_key_map``, ``referencenet_key_map``, ``clip_vision_key_map``,
+``image_proj_key_map``, ``controlnet_key_map`` and ``pose_guider_key_map``
+yield ``(torch_key, tree_path, kind)`` triples, and ``export_state_dict``
+reads a JAX-layout param tree (nested dicts/lists of arrays) through a map
+into torch-layout numpy arrays: HWIO -> OIHW for convolutions (HWIO ->
+(O, I, 1, kH, kW) for an InflatedConv3d), (in, out) -> (out, in) for
+linears, (kT, 1, I, O) -> (O, I, kT, 1, 1) for the temporal conv.
+``ip_adapter_site_paths`` names the attn2 modules in the numbering of an
+``ip_adapter.bin``. Numpy only.
 """
 
 from __future__ import annotations
@@ -224,6 +226,52 @@ def referencenet_key_map(cfg) -> Iterator[KeyEntry]:
     yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
 
 
+def controlnet_key_map(cfg) -> Iterator[KeyEntry]:
+    """diffusers ControlNetModel keys (``controlnet_key_map``,
+    sd_weights.py:279-335): the trunk of ``referencenet_key_map`` plus the
+    conditioning stem and one zero conv per skip feature and the mid block."""
+    yield "conv_in", ("conv_in",), "conv2d"
+    yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
+    yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
+    ce = "controlnet_cond_embedding"
+    yield f"{ce}.conv_in", ("cond_embedding", "conv_in"), "conv2d"
+    for i in range(len(cfg.cond_embed_channels) - 1):
+        yield f"{ce}.blocks.{2 * i}", ("cond_embedding", "blocks", i, "conv1"), "conv2d"
+        yield f"{ce}.blocks.{2 * i + 1}", ("cond_embedding", "blocks", i, "conv2"), "conv2d"
+    yield f"{ce}.conv_out", ("cond_embedding", "conv_out"), "conv2d"
+    n = len(cfg.block_out_channels)
+    zc = 0
+    yield f"controlnet_down_blocks.{zc}", ("zero_convs", zc), "conv2d"
+    for i in range(n):
+        base = f"down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            path = ("down_blocks", i, "layers", j)
+            yield from _resnet_entries(f"{base}.resnets.{j}", (*path, "resnet"))
+            if i < n - 1:
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+            zc += 1
+            yield f"controlnet_down_blocks.{zc}", ("zero_convs", zc), "conv2d"
+        if i < n - 1:
+            yield (f"{base}.downsamplers.0.conv", ("down_blocks", i, "downsample", "conv"),
+                   "conv2d")
+            zc += 1
+            yield f"controlnet_down_blocks.{zc}", ("zero_convs", zc), "conv2d"
+    yield from _resnet_entries("mid_block.resnets.0", ("mid_block", "resnet_0"))
+    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"))
+    yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
+    yield "controlnet_mid_block", ("mid_zero_conv",), "conv2d"
+
+
+def pose_guider_key_map(cfg) -> Iterator[KeyEntry]:
+    """PoseGuider keys (``pose_guider_key_map``, sd_weights.py:575-587):
+    conv_in, (conv, strided conv) pairs and conv_out, all InflatedConv3d."""
+    yield "conv_in", ("conv_in",), "conv3d_spatial"
+    for i in range(len(cfg.cond_embed_channels) - 1):
+        yield f"blocks.{2 * i}", ("blocks", i, "conv1"), "conv3d_spatial"
+        yield f"blocks.{2 * i + 1}", ("blocks", i, "conv2"), "conv3d_spatial"
+    yield "conv_out", ("conv_out",), "conv3d_spatial"
+
+
 def clip_vision_key_map(cfg) -> Iterator[KeyEntry]:
     """transformers CLIPVisionModelWithProjection keys (the IP-Adapter image
     encoder). The JAX package converts the bare HWIO patch-embedding array
@@ -312,6 +360,8 @@ def export_state_dict(key_map, params) -> Dict[str, np.ndarray]:
             out[f"{tk}.weight"] = c(kern.T)
         elif kind == "conv2d":
             out[f"{tk}.weight"] = c(kern.transpose(3, 2, 0, 1))
+        elif kind == "conv3d_spatial":  # InflatedConv3d (O, I, 1, kH, kW)
+            out[f"{tk}.weight"] = c(kern.transpose(3, 2, 0, 1)[:, :, None])
         elif kind == "conv3d_t":
             out[f"{tk}.weight"] = c(kern.transpose(3, 2, 0, 1)[:, :, :, :, None])
         else:

@@ -13,9 +13,10 @@ models; ``adain_fix=False`` (default) reproduces that.
 ``UNet3DConfig`` has the JAX config's fields for what is ported, including
 the ``musev_referencenet`` preset's ReferenceNet block-emb fusion (13
 ``ReferEmbFuse`` sites: the stem, after every down layer and downsampler, and
-after the mid block) and the IP-Adapter dual-KV cross-attention. Not ported
-yet, and absent from the config: the FaceID branch, the spatial position
-embedding and the sparse-causal temporal mask.
+after the mid block) and the IP-Adapter dual-KV cross-attention, and the
+pose preset's ControlNet residuals and PoseGuider embedding as inputs of
+``unet3d_apply``. Not ported yet, and absent from the config: the FaceID
+branch, the spatial position embedding and the sparse-causal temporal mask.
 """
 
 from __future__ import annotations
@@ -276,6 +277,9 @@ def unet3d_core(
     ip_adapter_scale: float = 1.0,
     down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
     mid_block_refer_emb: Optional[torch.Tensor] = None,
+    controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
+    controlnet_mid_residual: Optional[torch.Tensor] = None,
+    pose_guider_emb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The UNet block loop over frame rows ``x (B*T, H, W, C)``."""
     cfg = unet.cfg
@@ -319,6 +323,8 @@ def unet3d_core(
         return mod(x, refer_emb, num_frames=num_frames)
 
     x = unet.conv_in(x)
+    if pose_guider_emb is not None:
+        x = x + pose_guider_emb.to(x.dtype)
     if hasattr(unet, "transformer_in"):
         x = temporal_attn(unet.transformer_in, x)
     refer = iter(down_block_refer_embs or ())
@@ -338,6 +344,9 @@ def unet3d_core(
             if fuse_down:
                 x = fuse(next(fusers), x, next(refer))
             skips.append(x)
+    if controlnet_down_residuals is not None:
+        skips = [s + r.to(s.dtype) for s, r in zip(skips, controlnet_down_residuals)]
+        x = skips[-1]
 
     mid = unet.mid_block
     x = mid.resnets[0](x, temb)
@@ -352,6 +361,8 @@ def unet3d_core(
     x = adain(x)
     if cfg.need_refer_emb and mid_block_refer_emb is not None:
         x = fuse(unet.mid_block_refer_emb_attns, x, mid_block_refer_emb)
+    if controlnet_mid_residual is not None:
+        x = x + controlnet_mid_residual.to(x.dtype)
 
     for block in unet.up_blocks:
         for j in range(len(block.resnets)):
@@ -381,6 +392,9 @@ def unet3d_apply(
     mid_block_refer_emb: Optional[torch.Tensor] = None,
     vision_clip_emb: Optional[torch.Tensor] = None,
     ip_adapter_scale: float = 1.0,
+    controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
+    controlnet_mid_residual: Optional[torch.Tensor] = None,
+    pose_guider_emb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Predict noise for a window of frames.
 
@@ -408,5 +422,7 @@ def unet3d_apply(
         gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask,
         clip_ctx=clip_ctx, ip_adapter_scale=ip_adapter_scale,
         down_block_refer_embs=down_block_refer_embs, mid_block_refer_emb=mid_block_refer_emb,
+        controlnet_down_residuals=controlnet_down_residuals,
+        controlnet_mid_residual=controlnet_mid_residual, pose_guider_emb=pose_guider_emb,
     )
     return x.reshape(b, num_frames, h0, w0, -1)

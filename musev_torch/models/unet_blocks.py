@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
+from ..ops.kernels.pivot import pivot_rows, unpivot_rows
 from ..ops.kernels.short_attention import MAX_SHORT_SEQ, short_attention_packed
 from .common import Conv2d, FeedForward, GroupNorm, LayerNorm, TemporalConv
 
@@ -279,13 +280,16 @@ class TemporalTransformer(nn.Module):
     def forward(self, x: torch.Tensor, femb: torch.Tensor, *, num_frames: int,
                 cond_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B*T, H, W, C); femb (B, T, femb_dim). GN runs per batch element
-        over the (T, H, W, C) video (temporal_transformer.py:117-119)."""
+        over the (T, H, W, C) video (temporal_transformer.py:117-119); its
+        apply is fused into the pivot to pixel-major rows."""
         bt, h, w, c = x.shape
         b = bt // num_frames
         v = x.reshape(b, num_frames, h, w, c)
-        y = self.norm(v).permute(0, 2, 3, 1, 4).reshape(b, h * w, num_frames, c)
+        scale, shift = self.norm.scale_shift(v)
+        scale, shift = (s[:, None].expand(b, num_frames, c) for s in (scale, shift))
+        y = pivot_rows(x.reshape(b, num_frames, h * w, c), scale, shift)
         y = self.core(y, femb)
-        y = y.reshape(b, h, w, num_frames, c).permute(0, 3, 1, 2, 4)
+        y = unpivot_rows(y).reshape(b, num_frames, h, w, c)
         if cond_mask is not None:
             y = y * cond_mask[None, :, None, None, None].to(y.dtype)
         out = v + self.temporal_weight.abs().to(y.dtype) * y

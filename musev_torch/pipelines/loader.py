@@ -1,14 +1,17 @@
 """Model construction: preset name -> randomly initialized ``MusevModels``.
 
-Counterpart of ``musev_tpu/pipelines/loader.py`` for the ``musev`` and
-``musev_referencenet`` presets (``configs/model_registry.py:69-80``; the
-latter adds the ReferenceNet, the ViT-H CLIP vision encoder and the
-IP-Adapter ImageProjModel, 1024 -> 4 x 768). With no checkpoints in the
-repository, weights are drawn at full width from a seed the way the JAX
-package's ``fast_init`` draws them (N(0, 0.02) for matrices, zero biases,
-unit norm scales), the zero-initialised fuse ``to_out`` included.
-Checkpoint ingestion, the ``musev_referencenet_pose`` preset and the
-IP-Adapter-Plus Resampler are not ported yet.
+Counterpart of ``musev_tpu/pipelines/loader.py`` for the three presets
+(``configs/model_registry.py:69-80``): ``musev``; ``musev_referencenet``,
+which adds the ReferenceNet, the ViT-H CLIP vision encoder and the
+IP-Adapter ImageProjModel, 1024 -> 4 x 768; ``musev_referencenet_pose``,
+which adds the ControlNet (320/640/1280/1280, stem 16/32/96/256) to those.
+With no checkpoints in the repository, weights are drawn at full width from
+a seed the way the JAX package's ``fast_init`` draws them (N(0, 0.02) for
+matrices, zero biases, unit norm scales), the zero-initialised fuse
+``to_out`` and ControlNet zero convs included, so the branches act. The JAX
+loader builds the PoseGuider only from a checkpoint; without one, a caller
+builds ``MusevModels`` with a ``PoseGuider`` of its own. Checkpoint
+ingestion and the IP-Adapter-Plus Resampler are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel
 from ..models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from ..models.common import GroupNorm, LayerNorm
+from ..models.controlnet import ControlNet, ControlNetConfig
 from ..models.ip_adapter import ImageProjModel
 from ..models.referencenet import ReferenceNet2D, ReferenceNetConfig
 from ..models.unet3d import UNet3D, musev_config, musev_referencenet_config
@@ -28,8 +32,7 @@ from ..models.vae import AutoencoderKL, VAEConfig
 from ..utils.tokenizer import HashTokenizer
 from .pipeline import MusevModels
 
-_PRESETS = ("musev", "musev_referencenet")
-_NOT_PORTED_PRESETS = ("musev_referencenet_pose",)
+_PRESETS = ("musev", "musev_referencenet", "musev_referencenet_pose")
 # ModelPreset defaults of the referencenet presets (model_registry.py:35-42)
 IP_ADAPTER_CLIP_DIM = 1024
 IP_ADAPTER_TOKENS = 4
@@ -78,8 +81,6 @@ def build_models(
 ) -> MusevModels:
     """Full-width random-weight models for ``preset`` on ``device`` (default
     CUDA, bf16; float32 on the CPU)."""
-    if preset in _NOT_PORTED_PRESETS:
-        raise NotImplementedError(f"preset {preset!r} is not ported to musev_torch yet")
     if preset not in _PRESETS:
         raise ValueError(f"unknown preset {preset!r}")
     if ip_adapter_model_name != "IPAdapter":
@@ -95,7 +96,8 @@ def build_models(
     torch.backends.cudnn.allow_tf32 = False
 
     text_cfg = CLIPTextConfig()
-    refnet = preset == "musev_referencenet"
+    refnet = preset.startswith("musev_referencenet")
+    pose = preset == "musev_referencenet_pose"
     unet_cfg = musev_referencenet_config() if refnet else musev_config()
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
@@ -104,11 +106,13 @@ def build_models(
             modules += [ReferenceNet2D(ReferenceNetConfig()), CLIPVisionModel(CLIPVisionConfig()),
                         ImageProjModel(IP_ADAPTER_CLIP_DIM, unet_cfg.ip_adapter_dim,
                                        IP_ADAPTER_TOKENS)]
+        if pose:
+            modules.append(ControlNet(ControlNetConfig()))
     for m in modules:
         init_random_(m, gen)
         m.to(dtype).eval()
         _conv_weights_channels_last(m)
     unet, vae, text = modules[:3]
-    extra = dict(zip(("referencenet", "clip_vision", "ip_proj"), modules[3:]))
+    extra = dict(zip(("referencenet", "clip_vision", "ip_proj", "controlnet"), modules[3:]))
     return MusevModels(unet=unet, vae=vae, text_encoder=text,
                        tokenizer=HashTokenizer(vocab_size=text_cfg.vocab_size), **extra)

@@ -10,22 +10,28 @@ Ported: ``text2video`` with the vision-condition, T2I first frame, weighted
 prompt and context-window paths, and the ``musev_referencenet`` preset's
 image-to-video conditioning: ReferenceNet features fused into the UNet and
 IP-Adapter image tokens (ImageProjModel) in a second cross-attention, both
-taken from the condition image by default. Not ported yet (raise
-NotImplementedError): FaceID / ControlNet inputs, image-prompt-only text,
-condition-image redraw, serial-denoise carries, per-step latents, histogram
-matching, CFG rescale, LoRA, textual inversion and LCM.
+taken from the condition image by default. ``video2video`` (Pose2Video and
+Video2Video) runs a shot loop over the windows of a source video, each
+window's control maps driving the ControlNet and PoseGuider of the
+``musev_referencenet_pose`` preset, with the img2img ``video_strength``
+start. Not ported yet (raise NotImplementedError): FaceID inputs and
+text2video's control images, image-prompt-only text, condition-image
+redraw, serial-denoise carries, per-step latents, histogram matching, CFG
+rescale, LoRA, textual inversion and LCM.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.clip_text import CLIPTextModel, clip_text_encode
+from ..io.video import PrefetchingWindows
 from ..models.clip_vision import CLIPVisionModel, clip_vision_encode, preprocess_clip_image
+from ..models.controlnet import ControlNet, PoseGuider
 from ..models.ip_adapter import ImageProjModel
 from ..models.referencenet import ReferenceNet2D, referencenet_apply
 from ..models.unet3d import UNet3D
@@ -49,6 +55,9 @@ class MusevModels:
     referencenet: Optional[ReferenceNet2D] = None
     clip_vision: Optional[CLIPVisionModel] = None
     ip_proj: Optional[ImageProjModel] = None
+    # the musev_referencenet_pose preset's control branches
+    controlnet: Optional[ControlNet] = None
+    pose_guider: Optional[PoseGuider] = None
 
     @property
     def device(self) -> torch.device:
@@ -78,6 +87,64 @@ _NOT_PORTED = {
     "prompt_only_use_image_prompt": False,
     "guidance_rescale": 0.0,
 }
+# the same for video2video
+_NOT_PORTED_V2V = {
+    "record_mid_video": False,
+    "video_overlap": 1,
+    "need_middle_latents": False,
+    "need_hist_match": False,
+    "guidance_rescale": 0.0,
+}
+
+
+def _reject_unported(fn: str, unported: dict, table: dict) -> None:
+    """Raise for an unknown option or a not-ported one away from its no-op value."""
+    for name, value in unported.items():
+        if name not in table:
+            raise TypeError(f"{fn}() got an unexpected keyword argument {name!r}")
+        default = table[name]
+        if not (value is default or (default is not None and value == default)):
+            raise NotImplementedError(f"{fn}({name}=...) is not ported to musev_torch yet")
+
+
+def _prompt_batch(prompt, negative_prompt) -> Tuple[List[str], List[str]]:
+    """Prompt and negative prompt as lists of one length."""
+    if isinstance(prompt, str):
+        prompt = [prompt]
+    if isinstance(negative_prompt, str):
+        negative_prompt = [negative_prompt] * len(prompt)
+    elif len(negative_prompt) == 1:
+        negative_prompt = list(negative_prompt) * len(prompt)
+    if len(negative_prompt) != len(prompt):
+        raise ValueError(
+            f"negative_prompt batch {len(negative_prompt)} != prompt batch {len(prompt)}"
+        )
+    return list(prompt), list(negative_prompt)
+
+
+def _source_windows(video_frames, time_size: int, b: int) -> Tuple[Iterator, Tuple[int, int]]:
+    """Windows of ``time_size`` frames of a (T, H, W, 3) source shared by the
+    batch, a (B, T, H, W, 3) batched source, or an iterator of windows (a
+    streaming reader); returns them with the frames' (H, W)."""
+    if isinstance(video_frames, np.ndarray) or hasattr(video_frames, "shape"):
+        frames = np.asarray(video_frames)
+        if frames.ndim == 5 and frames.shape[0] != b:
+            raise ValueError(f"batched video_frames B={frames.shape[0]} != prompt batch {b}")
+        axis = frames.ndim - 4  # the time axis
+        windows = (frames[:, lo:lo + time_size] if axis else frames[lo:lo + time_size]
+                   for lo in range(0, frames.shape[axis], time_size))
+        return windows, frames.shape[axis + 1:axis + 3]
+    it = iter(video_frames)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("video_frames yielded no frames") from None
+
+    def chain():
+        yield first
+        yield from it
+
+    return chain(), first.shape[1:3]
 
 
 class MusevPipeline:
@@ -160,6 +227,21 @@ class MusevPipeline:
         latents = make_noise(generator, shape, noise_type=noise_type, w_ind_noise=w_ind_noise,
                              device=self.m.device) * spec.scheduler.init_noise_sigma
         return denoise_loop(self.m.unet, spec, latents, text_uc, text_c)
+
+    def _condition_latents(
+        self, condition_images: Optional[np.ndarray], n_vc: int, text_c: torch.Tensor,
+        text_uc: torch.Tensor, height: int, width: int, generator: torch.Generator, **t2i,
+    ) -> Optional[torch.Tensor]:
+        """Phase 1: float32 (B, n_vc, h, w, C) latents of the given condition
+        images, or of a T2I first frame; None without condition frames."""
+        if n_vc == 0:
+            return None
+        if condition_images is not None:
+            return self.encode_images(condition_images).float()
+        if n_vc == 1:
+            return self.generate_condition_latents(text_c, text_uc, height, width, generator,
+                                                   **t2i)
+        raise ValueError("n_vision_condition > 1 requires explicit condition_images")
 
     def _ip_tokens(self, images_bn: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, N, H, W, 3) images -> (cond, uncond) IP-Adapter tokens, each
@@ -252,24 +334,8 @@ class MusevPipeline:
         With the ReferenceNet / IP-Adapter models present, ``refer_image``
         defaults to the condition image and ``ip_adapter_image`` to
         ``refer_image`` (predictor.py:588-636)."""
-        for name, value in unported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"text2video() got an unexpected keyword argument {name!r}")
-            default = _NOT_PORTED[name]
-            if not (value is default or (default is not None and value == default)):
-                raise NotImplementedError(
-                    f"text2video({name}=...) is not ported to musev_torch yet"
-                )
-        if isinstance(prompt, str):
-            prompt = [prompt]
-        if isinstance(negative_prompt, str):
-            negative_prompt = [negative_prompt] * len(prompt)
-        elif len(negative_prompt) == 1:
-            negative_prompt = list(negative_prompt) * len(prompt)
-        if len(negative_prompt) != len(prompt):
-            raise ValueError(
-                f"negative_prompt batch {len(negative_prompt)} != prompt batch {len(prompt)}"
-            )
+        _reject_unported("text2video", unported, _NOT_PORTED)
+        prompt, negative_prompt = _prompt_batch(prompt, negative_prompt)
         b = len(prompt)
         gen = torch.Generator().manual_seed(seed)
         text_c, text_uc = self.encode_prompt_pair(prompt, negative_prompt)
@@ -277,18 +343,11 @@ class MusevPipeline:
         shape = (b, video_length, height // scale, width // scale,
                  self.m.unet.cfg.in_channels)
 
-        condition_latents = None
-        if n_vision_condition > 0:
-            if condition_images is not None:
-                condition_latents = self.encode_images(condition_images).float()
-            elif n_vision_condition == 1:
-                condition_latents = self.generate_condition_latents(
-                    text_c, text_uc, height, width, gen,
-                    num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-                    noise_type=noise_type, w_ind_noise=w_ind_noise,
-                )
-            else:
-                raise ValueError("n_vision_condition > 1 requires explicit condition_images")
+        condition_latents = self._condition_latents(
+            condition_images, n_vision_condition, text_c, text_uc, height, width, gen,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            noise_type=noise_type, w_ind_noise=w_ind_noise,
+        )
 
         spec = self._make_spec(
             video_num_inference_steps, video_length, context_frames, context_overlap,
@@ -317,6 +376,141 @@ class MusevPipeline:
             if n_vision_condition > 0 and not fix_condition_images:
                 condition_latents = full[:, -n_vision_condition:]
 
+        latents_cat = torch.cat(all_latents, dim=1)
+        videos = self.decode_latents(latents_cat, segment=decode_segment)
+        return VideoResult(videos=videos, latents=latents_cat.cpu().numpy())
+
+    @torch.inference_mode()
+    def video2video(
+        self,
+        prompt: Union[str, Sequence[str]],
+        video_frames,  # (T, H, W, 3) or (B, T, H, W, 3) [0, 255], or an iterator of windows
+        negative_prompt: Union[str, Sequence[str]] = "",
+        *,
+        video_is_middle: bool = False,
+        controlnet_processor=None,
+        need_video2video: bool = False,
+        video_strength: float = 0.8,
+        condition_images: Optional[np.ndarray] = None,  # (B, n_vc, H, W, 3) [0, 255]
+        time_size: int = 12,
+        n_vision_condition: int = 1,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        video_num_inference_steps: int = 10,
+        num_inference_steps: int = 30,
+        video_guidance_scale: float = 3.5,
+        guidance_scale: float = 7.5,
+        context_schedule: str = "uniform_v2",
+        context_frames: int = 12,
+        context_overlap: int = 4,
+        noise_type: str = "video_fusion",
+        w_ind_noise: float = 0.5,
+        motion_speed: float = 8.0,
+        controlnet_conditioning_scale: float = 1.0,
+        refer_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
+        ip_adapter_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
+        ip_adapter_scale: float = 1.0,
+        seed: int = 0,
+        decode_segment: int = 16,
+        **unported,
+    ) -> VideoResult:
+        """Pose2Video / Video2Video: a shot loop over the source video's windows
+        of ``time_size`` frames (run_pipe_video2video, predictor.py:760-1290).
+
+        ``video_is_middle=True`` means the source frames are already the
+        control maps (pose images); otherwise ``controlnet_processor`` (frames
+        -> maps) runs on each window in the prefetch thread. Each shot is
+        conditioned on the previous shot's last ``n_vision_condition`` frames
+        and their maps; the first on ``condition_images`` or a T2I frame.
+        ``need_video2video`` starts each shot from the noised source latents
+        and runs only the last ``video_strength`` of the steps. A trailing
+        partial window runs with its own (shorter) plan."""
+        _reject_unported("video2video", unported, _NOT_PORTED_V2V)
+        prompt, negative_prompt = _prompt_batch(prompt, negative_prompt)
+        b = len(prompt)
+        gen = torch.Generator().manual_seed(seed)
+        text_c, text_uc = self.encode_prompt_pair(prompt, negative_prompt)
+        windows, first_hw = _source_windows(video_frames, time_size, b)
+        height = height or first_hw[0]
+        width = width or first_hw[1]
+        scale = self.m.vae.cfg.downscale
+        lat_shape = (height // scale, width // scale, self.m.unet.cfg.in_channels)
+        n_vc = n_vision_condition
+
+        def build_spec(t_window: int) -> DenoiseSpec:
+            extra: dict = {}
+            if self.m.controlnet is not None:
+                extra.update(controlnet_cfg=self.m.controlnet.cfg,
+                             controlnet_scale=controlnet_conditioning_scale)
+            if self.m.pose_guider is not None:
+                extra["pose_guider_cfg"] = self.m.pose_guider.cfg
+            if need_video2video:  # the reference's get_timesteps (:1627-1641)
+                extra["start_step"] = min(
+                    int(video_num_inference_steps * (1.0 - video_strength)),
+                    video_num_inference_steps - 1,
+                )
+            spec = self._make_spec(
+                video_num_inference_steps, t_window, context_frames, context_overlap,
+                context_schedule, video_guidance_scale, None, "linear", n_vc, motion_speed,
+                ip_adapter_scale=ip_adapter_scale,
+            )
+            return dataclasses.replace(spec, **extra)
+
+        def prepare(window) -> Tuple[np.ndarray, np.ndarray]:
+            window = np.asarray(window)
+            if window.ndim == 4:  # (T, H, W, 3) shared by the batch
+                window = np.broadcast_to(window[None], (b, *window.shape))
+            if video_is_middle or controlnet_processor is None:
+                return window, window
+            return window, np.stack([controlnet_processor(f) for f in window])
+
+        spec = build_spec(time_size)
+        refer_cond = self._prepare_reference_conditioning(refer_image, ip_adapter_image, text_c)
+        use_ctrl = spec.controlnet_cfg is not None or spec.pose_guider_cfg is not None
+        condition_latents = last_control = None
+        all_latents: List[torch.Tensor] = []
+        for i_window, (window, control) in enumerate(PrefetchingWindows(windows,
+                                                                         map_fn=prepare)):
+            t_w = window.shape[1]
+            if t_w == 0:
+                continue
+            spec_w = spec if t_w == time_size else build_spec(t_w)
+            if i_window == 0:
+                condition_latents = self._condition_latents(
+                    condition_images, n_vc, text_c, text_uc, height, width, gen,
+                    num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                    noise_type=noise_type, w_ind_noise=w_ind_noise,
+                )
+                if condition_latents is not None and condition_latents.shape[1] != n_vc:
+                    raise ValueError(f"{condition_latents.shape[1]} condition images != "
+                                     f"n_vision_condition {n_vc}")
+                last_control = control[:, :n_vc]
+            noise = make_noise(gen, (b, t_w, *lat_shape), noise_type=noise_type,
+                               w_ind_noise=w_ind_noise, device=self.m.device)
+            if need_video2video:
+                latents = spec_w.scheduler.add_noise(self.encode_images(window).float(), noise,
+                                                     spec_w.start_step)
+            else:
+                if condition_latents is not None:
+                    cond_mean = condition_latents.mean(dim=1, keepdim=True)
+                    noise = 1e-3**0.5 * cond_mean + (1.0 - 1e-3) ** 0.5 * noise
+                latents = noise * spec_w.scheduler.init_noise_sigma
+            ctrl = None
+            if use_ctrl:  # [the condition frames' maps; the window's], in [0, 1]
+                maps = np.concatenate([last_control, control], axis=1) if n_vc else control
+                ctrl = torch.as_tensor(maps, dtype=torch.float32, device=self.m.device) / 255.0
+            out = denoise_loop(self.m.unet, spec_w, latents, text_uc, text_c,
+                               condition_latents=condition_latents,
+                               controlnet=self.m.controlnet, control_images=ctrl,
+                               pose_guider=self.m.pose_guider, **refer_cond)
+            full = splice_condition_frames(out, condition_latents, n_vc)
+            all_latents.append(full if i_window == 0 else full[:, n_vc:])
+            if n_vc > 0:
+                condition_latents = full[:, -n_vc:]
+                last_control = control[:, -n_vc:]
+
+        if not all_latents:
+            raise ValueError("video_frames yielded no frames")
         latents_cat = torch.cat(all_latents, dim=1)
         videos = self.decode_latents(latents_cat, segment=decode_segment)
         return VideoResult(videos=videos, latents=latents_cat.cpu().numpy())

@@ -68,3 +68,10 @@ class EulerDiscreteScheduler:
         derivative = (x - pred_original) / sigma
         prev = x + derivative * (float(self.sigmas[step_index + 1]) - sigma)
         return prev.to(sample.dtype), pred_original.to(sample.dtype)
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  step_index: int) -> torch.Tensor:
+        """``original + noise * sigma`` at ``step_index`` in float32, returned
+        in ``original``'s dtype (the img2img start of a truncated schedule)."""
+        sigma = float(self.sigmas[step_index])
+        return (original.float() + noise.float() * sigma).to(original.dtype)

@@ -2,12 +2,16 @@
 
 Imports nothing of JAX, so it runs where JAX is absent:
 ``python -m pytest --noconftest -p no:randomly -m cuda tests/test_torch_cuda.py``.
-Without a CUDA device every test skips. The inputs are column views of one
-fused projection, as ``Attention.project`` makes them. Tolerances are scaled
-to what is compared: the kernels round P and the output to bf16 (relative
-rounding error up to 2^-9 per element), the plain versions keep float32
-throughout, so the relative L2 error must stay under 1e-2 and the largest
-error under 2e-2 of the largest output.
+Without a CUDA device every test skips. The attention inputs are column
+views of one fused projection, as ``Attention.project`` makes them.
+Tolerances are scaled to what is compared: the attention kernels round P and
+the output to bf16 (relative rounding error up to 2^-9 per element), the
+plain versions keep float32 throughout, so the relative L2 error must stay
+under 1e-2 and the largest error under 2e-2 of the largest output. The
+pivots move bits and must match exactly; the fused GroupNorm apply rounds
+its float32 product separately where the plain version may fuse it with the
+add, so it may differ by one bf16 ulp of the output plus one float32 ulp of
+the product.
 """
 
 import pytest
@@ -21,6 +25,12 @@ from musev_torch.ops.kernels.flash_attention import (
     flash_attention_stats_plain,
 )
 from musev_torch.ops.kernels.flash_stream import flash_stream
+from musev_torch.ops.kernels.pivot import (
+    pivot_rows,
+    pivot_rows_plain,
+    unpivot_rows,
+    unpivot_rows_plain,
+)
 from musev_torch.ops.kernels.short_attention import (
     short_attention_packed,
     short_attention_plain,
@@ -128,3 +138,63 @@ def test_cuda_short_matches_plain(cuda, kv_len):
     q, k, v = qkv.chunk(3, dim=-1)
     got = short_attention_packed(q, k, v, 8, kv_len=kv_len)
     assert_close_scaled(got, short_attention_plain(q, k, v, 8, kv_len=kv_len))
+
+
+def _ulp(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - mantissa_bits)
+
+
+def assert_gn_apply_close(got, want, x, scale):
+    """Within one bf16 ulp of the output plus one float32 ulp of x * scale."""
+    product = (x.float() * scale[:, :, None]).transpose(1, 2)
+    bound = _ulp(want.float(), 7) + _ulp(product, 23)
+    assert ((got.float() - want.float()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,hw,c", [(6, 13, 5184, 320), (6, 13, 1296, 640), (6, 13, 324, 1280),
+                                      (6, 13, 81, 1280), (2, 13, 5184, 320), (1, 5, 7, 8)])
+def test_cuda_pivots_match_plain(cuda, b, t, hw, c):
+    """K5 and K7 bit for bit, K6 within its rounding bound, at the temporal
+    sites of the paths (HW 5184 and 81 are not multiples of 128) and at a
+    ragged small shape; x is a strided view (a pixel slice of a wider video)
+    and scale/shift are broadcast over T, as the temporal transformer gives
+    them."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wide = torch.randn(b, t, hw + 8, c, device=cuda, generator=g).bfloat16()
+    x = wide[:, :, 4:hw + 4]
+    scale, shift = (torch.randn(b, 1, c, device=cuda, generator=g).expand(b, t, c)
+                    for _ in range(2))
+    counts = (pivot_rows.launches, pivot_rows.gn_launches, unpivot_rows.launches)
+    assert torch.equal(pivot_rows(x), pivot_rows_plain(x))
+    assert_gn_apply_close(pivot_rows(x, scale, shift), pivot_rows_plain(x, scale, shift), x, scale)
+    y = torch.randn(b, hw, t, c, device=cuda, generator=g).bfloat16()
+    assert torch.equal(unpivot_rows(y), unpivot_rows_plain(y))
+    assert (pivot_rows.launches, pivot_rows.gn_launches, unpivot_rows.launches) == tuple(
+        n + 1 for n in counts)
+
+
+@pytest.mark.cuda
+def test_cuda_pivots_take_float32(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 3, 50, 16, device=cuda, generator=g)
+    scale, shift = (torch.randn(2, 3, 16, device=cuda, generator=g) for _ in range(2))
+    assert torch.equal(pivot_rows(x), pivot_rows_plain(x))
+    want = pivot_rows_plain(x, scale, shift)
+    bound = _ulp(want, 23) + _ulp((x * scale[:, :, None]).transpose(1, 2), 23)
+    assert ((pivot_rows(x, scale, shift) - want).abs() <= bound).all()
+    assert torch.equal(unpivot_rows(x), unpivot_rows_plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_pivots_raise_instead_of_falling_back(cuda):
+    odd = torch.zeros(2, 13, 81, 12, device=cuda, dtype=torch.bfloat16)  # C not a multiple of 8
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pivot_rows(odd)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        unpivot_rows(odd)
+    with pytest.raises(TypeError):
+        pivot_rows(torch.zeros(2, 13, 81, 16, device=cuda, dtype=torch.float16))
+    x = torch.zeros(2, 13, 81, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        pivot_rows(x[..., 4:20])  # rows not 16-byte aligned

@@ -129,7 +129,9 @@ def test_build_models_needs_cuda_unless_cpu_is_asked():
         build_models("musev")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_models("musev_referencenet")
-    with pytest.raises(NotImplementedError):
-        build_models("musev_referencenet_pose", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_models("musev_referencenet_pose")
+    with pytest.raises(ValueError, match="unknown preset"):
+        build_models("musev_pose", device="cpu")
     with pytest.raises(NotImplementedError, match="IPAdapterPlus"):
         build_models("musev_referencenet", device="cpu", ip_adapter_model_name="IPAdapterPlus")
