@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 
 1. build: compile the port's four CUDA sources from ``musev_torch/csrc``
-   (all nvcc at once) and print the card's name and power limit;
+   (all nvcc at once, with ``-Xptxas -v``) and print the card's name and
+   power limit, each flash instance's registers and spills and the HGMMA and
+   TMA-load (UTMALDG) instructions in the flash library's SASS; fails if the
+   wgmma kernel has none of either (where ``cuobjdump`` is missing it says
+   the check was not made);
 2. kernels: at the paths' shapes (576^2, 24 frames, 12-frame windows
    overlapping by 4, one vision-condition frame, CFG: 78 frame rows, 8
    heads), on q/k/v laid out as the paths' projections lay them out, hold
@@ -62,6 +66,10 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exp2 rate of the special-function units, 16 per clock per SM (Shah et al.,
+# FlashAttention-3, 2024, section 3.1: 3.9 TFLOPS of exponentials on H100 SXM);
+# one exp2 per logit is a floor beside the bound wherever d is below about 63
+PEAK_EXP2 = 3.9e12
 
 # (site, projection, B, H, sq, sk, d) in the (B, S, H, D) layout the kernel
 # takes. The projection names the path's layout of q/k/v: "qkv" is one fused
@@ -209,18 +217,96 @@ def read_counts() -> dict:
     return {name: getattr(w, attr) for name, (w, attr) in kernel_counters().items()}
 
 
+def ptxas_report(text: str) -> dict:
+    """Registers, stack and spills per kernel from ``nvcc -Xptxas -v``
+    output, keyed by the kernel's name and template arguments."""
+    import re
+
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = (re.search(r"(flash_fwd_\w+?_kernel)", mangled)
+                    or re.search(r"(\w+_kernel)", mangled))
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = f"{base.group(1) if base else mangled}<{','.join(args)}>"
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def sass_counts(lib: Path) -> dict:
+    """HGMMA and TMA-load (UTMALDG) instructions per kernel in the SASS of
+    a built library, or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            base = re.search(r"(flash_fwd_\w+?_kernel)", m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            name = f"{base.group(1)}<{','.join(args)}>" if base else None
+            if name:
+                counts[name] = dict(HGMMA=0, UTMALDG=0)
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build():
+    """Builds every source (all nvcc at once, with ``-Xptxas -v``); prints
+    the card, each flash instance's registers and spills from that build of
+    the loaded library, and the HGMMA and UTMALDG counts of its SASS, and
+    fails if the wgmma kernel lacks either."""
     from musev_torch.ops.kernels import _build
 
     t0 = time.time()
-    _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
+    outputs = _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
+    ptxas_out = outputs.get("flash_attention")
+    if ptxas_out is None:
+        print("ptxas report not made: the flash library was built before this run")
+        ptxas_out = ""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    regs = ptxas_report(ptxas_out)
+    for name, r in regs.items():
+        print(f"ptxas {name}: {r}")
+    for line in ptxas_out.splitlines():  # warnings, and wgmma serialisation notes
+        if "warning" in line.lower() or "Performance Loss" in line:
+            print(f"ptxas: {line.strip()[:200]}")
+    sass = sass_counts(_build.library_path("flash_attention"))
+    if sass is None:
+        print("SASS check not made: the toolkit has no cuobjdump")
+    else:
+        for name, n in sass.items():
+            print(f"SASS {name}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG")
+        wgmma = {k: n for k, n in sass.items() if k.startswith("flash_fwd_wgmma_kernel")}
+        if not wgmma or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0 for n in wgmma.values()):
+            fail(f"the wgmma flash kernel lacks HGMMA or UTMALDG instructions: {sass}")
     print(f"phase build: {time.time() - t0:.1f} s")
-    return card
+    return card, dict(ptxas=regs, sass=sass)
 
 
 def phase_kernels(torch):
@@ -244,6 +330,7 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {name: [] for name in KERNELS}
+    floors = {}  # computed, not measured: kept out of the kernels line
     for site, proj, b, h, sq, sk, d in FLASH_SITES:
         q, k, v = flash_inputs(torch, gen, proj, b, h, sq, sk, d)
         chunk = max(1, min(b, PLAIN_LOGIT_BYTES // (h * sq * sk * 4)))
@@ -257,6 +344,7 @@ def phase_kernels(torch):
         plain_ms = cuda_ms(torch, plain_all, warmup=1, iters=3)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bms, by = bound_ms(4.0 * b * h * sq * sk * d, 2.0 * b * h * d * (2 * sq + 2 * sk))
+        exp_ms = floors[site] = b * h * sq * sk / PEAK_EXP2 * 1e3  # one exp2 per logit
         part = split_part(sk, d)
         runs = [("flash_attention", lambda: flash_attention(q, k, v))]
         if part is not None:
@@ -273,7 +361,8 @@ def phase_kernels(torch):
                                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=bms, bound_by=by, **extra))
             print(f"{name} {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+                  f"exp2 floor {exp_ms:.3f} ms")
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
 
@@ -296,7 +385,7 @@ def phase_kernels(torch):
         del qkv, q, k, v, qt, kt, vt, out, want
     pivot_sites(torch, gen, rows)
     print(f"phase kernels: {time.time() - t0:.1f} s")
-    return rows
+    return rows, floors
 
 
 def pivot_sites(torch, gen, rows: dict) -> None:
@@ -444,8 +533,8 @@ def profile_path(torch, run, args):
     for key, ms, n in rows[:12]:
         print(f"  {ms:9.1f} ms {ms / busy_ms:6.1%} x{n:<6d} {key[:110]}")
     mine = {name: sum(r[1] for r in rows if name in r[0])
-            for name in ("flash_fwd_kernel", "flash_stream_kernel", "short_attn_kernel",
-                         "relayout_kernel")}
+            for name in ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel", "flash_stream_kernel",
+                         "short_attn_kernel", "relayout_kernel")}
     print(f"  port kernels: {mine}")
     return dict(wall_ms=wall_ms, device_ms=busy_ms, port_kernels_ms=mine,
                 top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]]), res
@@ -567,8 +656,8 @@ def main() -> None:
     import numpy as np
 
     t0 = time.time()
-    card = phase_build()
-    rows = phase_kernels(torch)
+    card, build = phase_build()
+    rows, exp2_floors = phase_kernels(torch)
     need = ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows")
     paths = {}
     paths["musev"], models, _ = phase_path(torch, "musev", "text2video", T2V_ARGS, need)
@@ -631,7 +720,8 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, device=device, kernels=kernels, paths=paths, split=split,
+        dict(card=card, device=device, build=build, kernels=kernels,
+             computed_exp2_floor_ms=exp2_floors, paths=paths, split=split,
              reference_rel_err=ref_err, total_s=time.time() - t0), indent=1))
     print(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

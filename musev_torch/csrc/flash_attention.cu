@@ -1,42 +1,88 @@
 // Flash attention for Hopper (sm_90a), bf16 in/out, fp32 logits and accumulator.
 //
-// Replaces two Pallas TPU kernels of musev_tpu/ops/pallas/flash_attention.py:
+// Replaces three Pallas TPU kernels of musev_tpu/ops/pallas/flash_attention.py:
 //   * _unroll_kernel (K1): K/V resident in VMEM, KV looped inside one program;
 //   * _carry_kernel  (K3): KV split into parts along a sequential grid axis with
-//     (m, l, acc) carried in VMEM scratch, for KV extents beyond VMEM.
+//     (m, l, acc) carried in VMEM scratch, for KV extents beyond VMEM;
+//   * _unroll_kernel with_stats=True (K1s): the same plus each row's softmax
+//     stats (m, l), merged across KV parts by the split-merge route.
 // The resident-versus-carry split exists only because of the TPU's 16 MB scoped
-// VMEM. Here one block owns a tile of query rows and loops over every KV tile
-// with the online-softmax state (m, l, acc) in registers, so any sk is one kernel.
+// VMEM. Here a block takes a tile of query rows of one (b, h) and loops over
+// every KV tile with the online-softmax state in registers, so any sk is one
+// launch.
 //
-// Bound. At the largest main-path site (576^2 ReferenceOnly cond half: bh 312,
-// sq 5184, sk 10368, d 40) the work is 4*312*5184*10368*40 = 2.7 TFLOP against
-// 0.3 GB of q/k/v/o: 2.7 ms at 989 TFLOP/s bf16 versus 0.1 ms at 3.35 TB/s, so
-// the bound is the tensor cores. The design feeds them with mma.sync
-// m16n8k16 (bf16 x bf16 -> fp32) on tiles staged in shared memory; S = Q K^T
-// stays in registers and is re-packed in place as the A operand of P V (the
-// accumulator layout of two n8 tiles is the A layout of one k16 step), so
-// logits never touch shared or device memory. K and V are read once per
-// query tile of 64 rows. wgmma/TMA pipelining is left for later work.
+// Bound. Per logit the kernel does 4 * dp tensor-core flops (dp: the head dim
+// padded to 16) and one exp2. At 989 TFLOP/s bf16 and about 3.9 T exp2/s
+// (16 MUFU.EX2 per clock per SM, 132 SMs, ~1.83 GHz) the two meet at
+// 4 * d = 989 / 3.9, d ~ 63: below that the exponential unit binds, above it
+// the tensor cores. At the 576^2 L0 sites (d = 40, dp = 48) the exp2 floor is
+// 2.15 ms for the self-attention site (bh 312, 5184^2 logits) against 1.36 ms
+// of tensor-core time at d = 40; at d = 80 and 160 the tensor cores bind.
+// A third limit is the K/V traffic from L2 into shared memory: each K/V tile
+// is read once per block, so the bytes per logit fall as a block holds more
+// query rows.
+//
+// Design for head dims up to 160 (flash_fwd_wgmma_kernel, Config below):
+//   * Warp specialisation. Warpgroup 0 is the producer: it gives up
+//     registers (setmaxnreg 24) and one thread issues TMA loads, each work
+//     item's Q into one of NQ buffers and K and V tiles into a ring of NS
+//     stages, each completing on its own mbarrier (full); consumers free a
+//     buffer on a second mbarrier (empty).
+//   * NC consumer warpgroups, 64 query rows each (setmaxnreg 160 with three,
+//     240 with two). d <= 40 takes three (192 rows per block, so each K/V
+//     tile serves 1.5x the rows of a 128-row block), larger d two.
+//   * S = Q K^T is wgmma m64nBKk16 with Q and K from shared memory; P V is
+//     wgmma m64nDNk16 with P from registers (the S accumulator re-packed to
+//     bf16: its layout is the A-fragment layout) and V from shared memory as
+//     an MN-major operand. DN is d padded to 8 only (40 at d = 40). Logits
+//     never leave registers.
+//   * Overlap within a warpgroup: the next tile's Q K^T and the previous
+//     tile's P V are issued back to back; the softmax (exp2) of the new tile
+//     runs while P V is still on the tensor cores. Across the consumers:
+//     named barriers give them turns to issue (ping-pong), so one's exp2 runs
+//     while the others' products run. This is what the exp2 floor at
+//     d <= 64 asks for.
+//   * Softmax: the row max is taken over raw logits and p = exp2(s * c - m)
+//     is one FFMA and one MUFU.EX2 (c = scale * log2 e); the key mask runs on
+//     the last, ragged tile only. (Skipping the exp2 of n8 blocks past sk, or
+//     the P V k-steps past sk, puts branches among the wgmma and ptxas then
+//     serialises every wgmma: C7511, C7520.)
+//   * Persistent blocks: one per SM, each walking work items (a (b, h) and a
+//     query tile; the tiles of one (b, h) adjacent, so blocks on the card at
+//     one time share K/V in L2). The next items' Q and K/V load while this
+//     item's epilogue runs, which is most of the cost at short KV (the 4 IP
+//     tokens, the 77 text tokens).
+// Shared-memory layout: every tile is stored as slabs of SW-byte rows (SW / 2
+// columns) with the SW-byte swizzle (TMA SWIZZLE_32B/64B/128B, wgmma layout
+// B32/B64/B128): K-major for Q and K (SBO 8 * SW bytes between 8-row groups;
+// a 16-column k-step starts 32 bytes further into the slab's rows), MN-major
+// for V (LBO one slab between column groups, SBO 8 * SW bytes between 8-key
+// groups). d = 40 uses 64-byte rows (32-column slabs), and Q K^T runs 3
+// k-steps over 48 of the 64 columns (a depth of 64 would cost a third more
+// work). TMA zero-fills the columns past d and the rows past sq or sk.
 //
 // Layout. q/k/v are addressed as (B, S, H, D) with arbitrary element strides
 // for B, S and H (D contiguous), so the fused QKV projection's views go in
-// without transposes or copies; o is written contiguous (B, Sq, H, D).
-// Head dims are padded to a multiple of 16 inside shared memory only
-// (d = 40 -> 48): the pad columns are zero-filled and never written back.
-// Ragged sq and sk tails are masked in the kernel; a row whose keys are all
-// masked yields 0 (the Pallas kernel's safe_l).
+// without transposes or copies: each is described by a 4-D TMA tensor map over
+// (D, S, H, B), encoded on the host per call through the driver entry point
+// cuTensorMapEncodeTiled (no -lcuda) and passed as a __grid_constant__. TMA
+// needs a 16-byte aligned base and strides that are multiples of 16 bytes; a
+// dim of extent 1 is never stepped and gets a legal stride. o is written
+// contiguous (B, Sq, H, D) from registers. A row whose keys are all masked
+// (sk = 0) yields 0 (the Pallas kernel's safe_l).
 //
-// Head dim 512 (the VAE mid-block) would need 256 fp32 accumulators per
-// thread, so there four warps share each 16-row group and each owns a quarter
-// of the output columns; each recomputes the group's S (QK^T flops x4, PV x1).
+// Head dims above 160 (the VAE mid-block, d = 512, 2-4 launches per clip)
+// keep the mma.sync design (flash_fwd_mma_kernel): 256 fp32 accumulators per
+// thread do not fit a warpgroup's registers beside S, so four warps share each
+// 16-row group and each owns a quarter of the output columns. Dispatch is by
+// head dim and fixed: d <= 160 always takes the wgmma kernel.
 //
-// Softmax stats (the with_stats=True outputs of _unroll_kernel, for the JAX
-// package's split-merge route): when m/l are given, each row's running max m
-// (of s * scale * log2e, the log2 units of the kernel's exp2) and
-// l = sum exp2(s * scale * log2e - m) are written in fp32 to (B, Sq, H)
-// arrays, so partial results over KV parts merge exactly. A row whose keys are
-// all masked keeps m = -inf and l = 0.
+// Softmax stats (K1s): when m/l are given, each row's running max m (of
+// s * scale * log2 e) and l = sum exp2(s * scale * log2 e - m) are written in
+// fp32 to (B, Sq, H) arrays, so partial results over KV parts merge exactly.
+// A row whose keys are all masked keeps m = -inf and l = 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,6 +91,8 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTensorMapError = -2;
+constexpr int kNoEncoder = -3;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -91,9 +139,679 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// ---- Hopper primitives: mbarriers, TMA, wgmma, named barriers -------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier's phase with the given parity has completed. A wait
+// that outlasts about ten seconds traps, so a broken pipeline fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// One TMA box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an operand stored with the SW-byte
+// swizzle (layout B32, B64 or B128): start address, leading and stride byte
+// offsets, all in 16-byte units.
+template <int SW>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the compiler may
+// not move their other uses across this point.
+template <int R>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> fp32. `ss`: A and B from shared memory, both
+// K-major; `rs`: A from registers (4 x bf16x2 per thread), B MN-major. The
+// accumulator of thread (warp w, lane 4g + t) holds d[4j + e] at row
+// 16w + g + 8 * (e >> 1), column 8j + 2t + (e & 1). One specialisation per
+// width an instance uses, each with its register list written out.
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <> __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<40>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ---- Warp-specialised wgmma/TMA kernel, head dims up to 160 -----------------
+
+// One instance of the kernel: DP the head dim padded to 16 (the depth of
+// Q K^T), DN the head dim padded to 8 (the width of P V and of O), BK keys
+// per tile, NS stages of the K/V ring, NQ Q buffers (later work items' Q
+// load while this one runs), SW-byte swizzled rows, NC consumer warpgroups
+// of 64 query rows each.
+template <int DP_, int DN_, int BK_, int NS_, int NQ_, int SW_, int NC_>
+struct Config {
+  static constexpr int DP = DP_, DN = DN_, BK = BK_, NS = NS_, NQ = NQ_, SW = SW_, NC = NC_;
+  static constexpr int kBlockQ = 64 * NC;
+  static constexpr int kThreads = 128 * (NC + 1);
+  // Shared memory: NQ Q buffers, NS K tiles, NS V tiles, each as slabs of
+  // SW-byte rows (SW / 2 columns), then the mbarriers. Every slab starts on
+  // a multiple of 8 * SW bytes, the period of the SW-byte swizzle.
+  static constexpr int kSlabCols = SW / 2;
+  static constexpr int kSlabs = (DP + kSlabCols - 1) / kSlabCols;
+  static constexpr int kQSlab = kBlockQ * SW;
+  static constexpr int kKVSlab = BK * SW;
+  static constexpr int kQBytes = kSlabs * kQSlab;    // one Q buffer
+  static constexpr int kKVBytes = kSlabs * kKVSlab;  // one K or V tile
+  static constexpr int kKOff = NQ * kQBytes;
+  static constexpr int kVOff = kKOff + NS * kKVBytes;
+  static constexpr int kBarOff = kVOff + NS * kKVBytes;
+  static constexpr int kBars = 2 * NQ + 4 * NS;  // full and empty per buffer
+  static constexpr int kBytes = kBarOff + kBars * 8 + 1024;  // + alignment slack
+  // Registers per thread after setmaxnreg: the producer keeps 24, the
+  // consumers share the rest of the 64K register file (128 x 24 + 256 x 240
+  // or 128 x 24 + 384 x 160 = 64512).
+  static constexpr int kConsumerRegs = NC == 2 ? 240 : 160;
+  static_assert(DP % 16 == 0 && DN % 8 == 0 && DN <= DP && BK % 16 == 0 && BK <= 256, "tile");
+  static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle");
+  static_assert(kQSlab % (8 * SW) == 0 && kKVSlab % (8 * SW) == 0, "slab alignment");
+  static_assert(NS >= 2, "the K/V ring needs two stages: V of tile j is freed after K of j + 1");
+  static_assert(NQ >= 1 && (NC == 2 || NC == 3) && kBytes <= 232448, "block resources");
+};
+
+// Online softmax of one S tile in place (s becomes p = exp2(x - m), x =
+// s * c, c = scale * log2 e), for the rows g and g + 8 of this thread. The
+// row max is taken over the raw logits, negated when c < 0, so that
+// max x = |c| max(sign * s) and p = exp2(fma(s, c, -m)) is one FFMA and one
+// MUFU.EX2 per logit. Keys at or past sk (kRagged: the last tile) get p = 0.
+// Updates the running max m (log2 units), the thread's partial row sums l,
+// and alpha, the rescale the accumulated O owes.
+template <int N, bool kNeg, bool kRagged>
+__device__ __forceinline__ void online_softmax(float* s, float c, int key0, int sk, int t,
+                                               float& m_lo, float& m_hi, float& l_lo,
+                                               float& l_hi, float& alpha_lo, float& alpha_hi) {
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float y = kNeg ? -s[i] : s[i];
+    if (kRagged && key0 + 8 * (i / 4) + 2 * t + (i & 1) >= sk) y = -INFINITY;
+    if (i & 2)
+      mx_hi = fmaxf(mx_hi, y);
+    else
+      mx_lo = fmaxf(mx_lo, y);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  const float cabs = fabsf(c);
+  const float mn_lo = fmaxf(m_lo, mx_lo == -INFINITY ? -INFINITY : cabs * mx_lo);
+  const float mn_hi = fmaxf(m_hi, mx_hi == -INFINITY ? -INFINITY : cabs * mx_hi);
+  // a row with no unmasked key so far keeps max -inf: subtract 0 instead, so
+  // no inf - inf NaN appears
+  const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+  const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+  alpha_lo = ex2(m_lo - base_lo);
+  alpha_hi = ex2(m_hi - base_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float p = ex2(fmaf(s[i], c, (i & 2) ? -base_hi : -base_lo));
+    if (kRagged && key0 + 8 * (i / 4) + 2 * t + (i & 1) >= sk) p = 0.f;
+    s[i] = p;
+    if (i & 2)
+      sum_hi += p;
+    else
+      sum_lo += p;
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           __nv_bfloat16* __restrict__ o, int H, int Sq, int Sk, int D,
+                           int q_tiles, int items, float scale_log2, float* __restrict__ m_out,
+                           float* __restrict__ l_out) {
+  constexpr int DP = C::DP, DN = C::DN, BK = C::BK, NS = C::NS, NQ = C::NQ, SW = C::SW;
+  constexpr int NC = C::NC;
+  constexpr int kSlabs = C::kSlabs;
+  constexpr int kSlabCols = C::kSlabCols;
+  constexpr int NSR = BK / 2;     // S accumulator floats per thread (m64 x BK)
+  constexpr int NOR = DN / 2;     // O accumulator floats per thread (m64 x DN)
+  constexpr int NP = BK / 4;      // P fragment registers per thread (BK / 16 k-steps x 4)
+  constexpr int kTurn = 128 * 2;  // threads at a turn barrier: the syncing and the arriving group
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty_q = full_q + NQ;
+  uint64_t* full_k = empty_q + NQ;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty_k = full_v + NS;
+  uint64_t* empty_v = empty_k + NS;
+
+  const int nt = (Sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NQ; ++i) {
+      mbar_init(&full_q[i], 1);
+      mbar_init(&empty_q[i], 128 * NC);
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 128 * NC);
+      mbar_init(&empty_v[s], 128 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Persistent: block x takes work items x, x + gridDim.x, ... An item is one
+  // (b, h) and one tile of 64 * NC query rows; the q tiles of one (b, h) are
+  // adjacent, so the blocks on the card at one time share K/V tiles in L2.
+  // K/V tiles run through the ring in one sequence across items (tile
+  // counter `kv`), and the Q buffers in turn by item (counter `it`).
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int kv = 0;
+      for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+        const int bh = item / q_tiles;
+        const int q0 = (item - bh * q_tiles) * C::kBlockQ;
+        const int b = bh / H;
+        const int h = bh - b * H;
+        const int qb = it % NQ;
+        unsigned char* qd = smem + qb * C::kQBytes;
+        mbar_wait(&empty_q[qb], ((it / NQ) & 1) ^ 1);  // the first use passes at once
+        mbar_expect_tx(&full_q[qb], C::kQBytes);
+        for (int s = 0; s < kSlabs; ++s)
+          tma_load(qd + s * C::kQSlab, &tm_q, &full_q[qb], kSlabCols * s, q0, h, b);
+        for (int j = 0; j < nt; ++j, ++kv) {
+          const int st = kv % NS;
+          const uint32_t ph = (kv / NS) & 1;
+          unsigned char* kd = smem + C::kKOff + st * C::kKVBytes;
+          unsigned char* vd = smem + C::kVOff + st * C::kKVBytes;
+          mbar_wait(&empty_k[st], ph ^ 1);
+          mbar_expect_tx(&full_k[st], C::kKVBytes);
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(kd + s * C::kKVSlab, &tm_k, &full_k[st], kSlabCols * s, j * BK, h, b);
+          mbar_wait(&empty_v[st], ph ^ 1);
+          mbar_expect_tx(&full_v[st], C::kKVBytes);
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(vd + s * C::kKVSlab, &tm_v, &full_v[st], kSlabCols * s, j * BK, h, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;  // row within an 8-row group
+    const int t = tid & 3;          // column pair within an n8 block
+    // Turns: consumer c issues its products after bar.sync on barrier 1 + c
+    // and then lets consumer c + 1 (mod NC) go, so the consumers' products
+    // queue on the tensor cores in a fixed order and each one's softmax runs
+    // beside the others' products.
+    const int my_turn = 1 + c;
+    const int next_turn = 1 + (c + 1) % NC;
+    const uint32_t k_base = smem_addr(smem + C::kKOff);
+    const uint32_t v_base = smem_addr(smem + C::kVOff);
+
+    float s_acc[NSR];
+    float o_acc[NOR];
+    uint32_t p_frag[NP];
+    float m_lo, m_hi;          // running max (log2 units), rows g and g + 8
+    float l_lo, l_hi;          // this thread's partial row sums
+    float alpha_lo, alpha_hi;  // rescale of O owed by the last softmax
+    uint32_t q_base = 0;
+    int kv0 = 0;  // ring position of this item's first K/V tile
+
+    // S = Q K^T of tile j: DP / 16 k-steps of 16 columns; a step starts
+    // 32 bytes further into its slab's rows (the swizzle is a function of
+    // the address, so the hardware finds each chunk), and 8-row groups are
+    // 8 * SW bytes apart.
+    auto issue_qk = [&](int j) {
+      const uint32_t kt = k_base + ((kv0 + j) % NS) * C::kKVBytes;
+      pin<NSR>(s_acc);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < DP / 16; ++s) {
+        const uint32_t slab = 16 * s / kSlabCols, col_bytes = 16 * s % kSlabCols * 2;
+        wgmma_ss<BK>(s_acc, smem_desc<SW>(q_base + slab * C::kQSlab + col_bytes, 16, 8 * SW),
+                     smem_desc<SW>(kt + slab * C::kKVSlab + col_bytes, 16, 8 * SW), s > 0);
+      }
+      wg_commit();
+      pin<NSR>(s_acc);
+    };
+    // O += P V of tile j: BK / 16 k-steps of 16 keys (all of them: a wgmma
+    // under a runtime condition makes ptxas serialize every wgmma); V's slabs
+    // are the MN-major operand's repeats along d (LBO), its 8-key groups
+    // 8 * SW bytes apart (SBO).
+    auto issue_pv = [&](int j) {
+      const uint32_t vt = v_base + ((kv0 + j) % NS) * C::kKVBytes;
+      pin<NOR>(o_acc);
+      pin<NP>(p_frag);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DN>(o_acc, p_frag + 4 * kk, smem_desc<SW>(vt + kk * 16 * SW, C::kKVSlab, 8 * SW));
+      wg_commit();
+      pin<NOR>(o_acc);
+    };
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int i = 0; i < NOR; i += 4) {
+        o_acc[i] *= alpha_lo;
+        o_acc[i + 1] *= alpha_lo;
+        o_acc[i + 2] *= alpha_hi;
+        o_acc[i + 3] *= alpha_hi;
+      }
+    };
+    auto softmax = [&](int j) {
+      const int key0 = j * BK;
+      const bool ragged = key0 + BK > Sk;
+      if (scale_log2 >= 0.f) {
+        if (ragged)
+          online_softmax<NSR, false, true>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo,
+                                           l_hi, alpha_lo, alpha_hi);
+        else
+          online_softmax<NSR, false, false>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo,
+                                            l_hi, alpha_lo, alpha_hi);
+      } else {
+        online_softmax<NSR, true, true>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo, l_hi,
+                                        alpha_lo, alpha_hi);
+      }
+    };
+    // P as the A operand of P V: n8 blocks 2kk and 2kk + 1 of S are k-step kk.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        p_frag[4 * kk] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
+        p_frag[4 * kk + 1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+        p_frag[4 * kk + 2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+        p_frag[4 * kk + 3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
+      }
+    };
+    auto wait_k = [&](int j) {
+      mbar_wait(&full_k[(kv0 + j) % NS], ((kv0 + j) / NS) & 1);
+    };
+    auto wait_v = [&](int j) {
+      mbar_wait(&full_v[(kv0 + j) % NS], ((kv0 + j) / NS) & 1);
+    };
+
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it, kv0 += nt) {
+      const int bh = item / q_tiles;
+      const int q0 = (item - bh * q_tiles) * C::kBlockQ;
+      const int b = bh / H;
+      const int h = bh - b * H;
+      const int qb = it % NQ;
+      q_base = smem_addr(smem + qb * C::kQBytes) + c * 64 * SW;
+#pragma unroll
+      for (int i = 0; i < NOR; ++i) o_acc[i] = 0.f;
+      m_lo = m_hi = -INFINITY;
+      l_lo = l_hi = 0.f;
+      alpha_lo = alpha_hi = 1.f;
+
+      mbar_wait(&full_q[qb], (it / NQ) & 1);
+      if (nt > 0) {
+        // the last consumer lets the first go; it takes no turn after its
+        // last products, so every turn barrier completes within the item
+        if (c == NC - 1) bar_arrive(1, kTurn);
+        wait_k(0);
+        bar_sync(my_turn, kTurn);
+        issue_qk(0);
+        bar_arrive(next_turn, kTurn);
+        wg_wait<0>();
+        pin<NSR>(s_acc);
+        mbar_arrive(&empty_k[kv0 % NS]);
+        if (nt == 1) mbar_arrive(&empty_q[qb]);
+        softmax(0);
+        pack_p();
+        for (int j = 1; j < nt; ++j) {
+          wait_k(j);
+          bar_sync(my_turn, kTurn);
+          issue_qk(j);
+          rescale_o();
+          wait_v(j - 1);
+          issue_pv(j - 1);
+          bar_arrive(next_turn, kTurn);
+          wg_wait<1>();  // Q K^T of tile j done; P V of tile j - 1 may run on
+          pin<NSR>(s_acc);
+          mbar_arrive(&empty_k[(kv0 + j) % NS]);
+          if (j == nt - 1) mbar_arrive(&empty_q[qb]);  // Q's last use
+          softmax(j);
+          wg_wait<0>();
+          pin<NOR>(o_acc);
+          pin<NP>(p_frag);
+          mbar_arrive(&empty_v[(kv0 + j - 1) % NS]);
+          pack_p();
+        }
+        rescale_o();
+        wait_v(nt - 1);
+        bar_sync(my_turn, kTurn);
+        issue_pv(nt - 1);
+        if (c != NC - 1) bar_arrive(next_turn, kTurn);
+        wg_wait<0>();
+        pin<NOR>(o_acc);
+        mbar_arrive(&empty_v[(kv0 + nt - 1) % NS]);
+      } else {
+        mbar_arrive(&empty_q[qb]);
+      }
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+      }
+      const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
+      const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+      const int row_lo = q0 + 64 * c + 16 * warp + g;
+      const int row_hi = row_lo + 8;
+      if (m_out != nullptr && t == 0) {
+        const long long st = (long long)b * Sq * H + h;
+        if (row_lo < Sq) {
+          m_out[st + (long long)row_lo * H] = m_lo;
+          l_out[st + (long long)row_lo * H] = l_lo;
+        }
+        if (row_hi < Sq) {
+          m_out[st + (long long)row_hi * H] = m_hi;
+          l_out[st + (long long)row_hi * H] = l_hi;
+        }
+      }
+      const long long o_ss = (long long)H * D;
+      __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D;
+#pragma unroll
+      for (int i = 0; i < DN / 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        if (8 * i < D) {
+          if (row_lo < Sq)
+            *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
+                pack_bf16(o_acc[4 * i] * inv_lo, o_acc[4 * i + 1] * inv_lo);
+          if (row_hi < Sq)
+            *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
+                pack_bf16(o_acc[4 * i + 2] * inv_hi, o_acc[4 * i + 3] * inv_hi);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a (B, S, H, D) bf16 view with element strides s = (batch,
+// seq, head) as the 4-D tensor (D, S, H, B), boxes of SW / 2 columns x `rows`
+// rows, SW-byte swizzle, out-of-bounds elements read as zero.
+template <int SW>
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+               const long long* s, int rows) {
+  EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return kNoEncoder;
+  const long long extent[3] = {S, H, B};
+  const long long elem[3] = {s[1], s[2], s[0]};
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long bytes = elem[i] * (long long)sizeof(__nv_bfloat16);
+    // a dim of extent 1 is never stepped: any legal stride will do
+    strides[i] = (extent[i] <= 1 && (bytes <= 0 || bytes % 16)) ? 16 : (cuuint64_t)bytes;
+  }
+  cuuint32_t box[4] = {(cuuint32_t)(SW / 2), (cuuint32_t)rows, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError;
+}
+
+template <class C>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+                 int Sk, int D, const long long* qs, const long long* ks, const long long* vs,
+                 float scale, float* m, float* l, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  // with no keys the K/V maps are never read (k and v may be null): describe q
+  if (Sk == 0) k = v = q, ks = vs = qs;
+  int err = tensor_map<C::SW>(&tq, q, B, Sq, H, D, qs, C::kBlockQ);
+  if (err == 0) err = tensor_map<C::SW>(&tk, k, B, Sk, H, D, ks, C::BK);
+  if (err == 0) err = tensor_map<C::SW>(&tv, v, B, Sk, H, D, vs, C::BK);
+  if (err != 0) return err;
+  auto kernel = flash_fwd_wgmma_kernel<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const int q_tiles = (Sq + C::kBlockQ - 1) / C::kBlockQ;
+  const long long items = (long long)q_tiles * B * H;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // one resident block per SM, each walking its share of the work items
+  const int blocks = (int)(items < sms ? items : sms);
+  kernel<<<blocks, C::kThreads, C::kBytes, stream>>>(
+      tq, tk, tv, reinterpret_cast<__nv_bfloat16*>(o), H, Sq, Sk, D, q_tiles, (int)items,
+      scale * kLog2e, m, l);
+  return cudaGetLastError();
+}
+
+// ---- mma.sync kernel, head dims above 160 (the VAE mid-block) ---------------
+
 template <int DP, int WQ, int WD, int BK>
 __global__ void __launch_bounds__(WQ* WD * 32)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                      int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
                      long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -265,14 +983,14 @@ __global__ void __launch_bounds__(WQ* WD * 32)
 }
 
 template <int DP, int WQ, int WD, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int Sq, int Sk, int D, const long long* qs, const long long* ks,
                    const long long* vs, float scale, float* m, float* l,
                    cudaStream_t stream) {
   constexpr int BQ = 16 * WQ;
   constexpr int LDS = DP + 8;
   const size_t smem = (size_t)(BQ + 2 * BK) * LDS * sizeof(__nv_bfloat16);
-  auto kernel = flash_fwd_kernel<DP, WQ, WD, BK>;
+  auto kernel = flash_fwd_mma_kernel<DP, WQ, WD, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -291,7 +1009,8 @@ extern "C" {
 
 // q/k/v strides are (batch, seq, head) in elements; the head dim is contiguous.
 // m and l are null, or fp32 (B, Sq, H) outputs for the softmax stats.
-// Returns 0 on success, a cudaError_t, or -1 for an unsupported head dim.
+// Returns 0 on success, a cudaError_t, -1 for an unsupported head dim, -2 if
+// TMA cannot address q, k or v, -3 if the driver has no tensor-map encoder.
 int musev_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
@@ -304,16 +1023,23 @@ int musev_flash_attention_bf16(const void* q, const void* k, const void* v, void
   float* mf = reinterpret_cast<float*>(m);
   float* lf = reinterpret_cast<float*>(l);
   if (D <= 0 || D % 8 != 0) return -1;
-  if (D <= 48) return launch<48, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
-  if (D <= 64) return launch<64, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
-  if (D <= 80) return launch<80, 4, 1, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
-  if (D <= 160) return launch<160, 4, 1, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
-  if (D <= 512) return launch<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  // Config<DP, DN, BK, NS, NQ, SW, NC> per head-dim instance (see Config)
+  if (D <= 40)
+    return launch_wgmma<Config<48, 40, 128, 4, 2, 64, 3>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 64)
+    return launch_wgmma<Config<64, 64, 128, 3, 2, 128, 2>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 80)
+    return launch_wgmma<Config<80, 80, 128, 3, 2, 32, 2>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 160)
+    return launch_wgmma<Config<160, 160, 64, 2, 2, 128, 2>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 512) return launch_mma<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
   return -1;
 }
 
 const char* musev_cuda_error_string(int err) {
   if (err == -1) return "unsupported head dim";
+  if (err == kTensorMapError) return "cuTensorMapEncodeTiled refused a q/k/v layout";
+  if (err == kNoEncoder) return "the CUDA driver has no cuTensorMapEncodeTiled";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -50,30 +50,34 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    # -Xptxas -v changes no code: it reports registers and spills per kernel
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return proc, tmp, target
 
 
-def build(names: Sequence[str]) -> None:
+def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every named source that is not built yet, all nvcc at once;
-    every nvcc is waited for before a failure is raised."""
+    every nvcc is waited for before a failure is raised. Returns nvcc's
+    output (with ptxas's registers and spills) per source it compiled."""
     with _lock:
         jobs = [(n, _start_build(n)) for n in names]
-        errors = []
+        errors, outputs = [], {}
         for name, job in jobs:
             if job is None:
                 continue
             proc, tmp, target = job
             out, _ = proc.communicate()
+            outputs[name] = out
             if proc.returncode == 0:
                 os.replace(tmp, target)
             else:
                 errors.append(f"nvcc failed for {name}.cu:\n{out}")
         if errors:
             raise RuntimeError("\n".join(errors))
+        return outputs
 
 
 def load(name: str) -> ctypes.CDLL:

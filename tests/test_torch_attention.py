@@ -25,6 +25,8 @@ from musev_torch.ops.kernels.flash_attention import (
     flash_attention_parts,
     flash_attention_plain,
     flash_attention_stats_plain,
+    layout_error,
+    WGMMA_MAX_HEAD_DIM,
 )
 from musev_torch.ops.kernels.flash_stream import flash_stream
 from musev_torch.ops.kernels.short_attention import (
@@ -198,3 +200,74 @@ def test_kernel_library_name_tracks_source():
     c = _build.library_path("flash_stream")
     assert a.parent == b.parent == c.parent == _build.BUILD_DIR
     assert a.name.startswith("libflash_attention-") and len({a, b, c}) == 3
+
+
+@pytest.mark.parametrize("d", [8, 40, 48, 64, 72, 80, 96, 160, 168, 512])
+def test_flash_broadcast_refused_only_on_the_tma_kernel(d):
+    """Dispatch is fixed by head dim: up to 160 the wgmma kernel reads q/k/v
+    through TMA, which cannot step a broadcast (stride-0) batch; above it
+    the mma.sync kernel takes one as it is."""
+    tma = d <= WGMMA_MAX_HEAD_DIM
+    assert tma == (d <= 160)
+    k = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16).expand(3, 16, 2, d)
+    assert layout_error(k.contiguous(), tma) is None
+    why = layout_error(k, tma)
+    assert ("stride 0" in why) if tma else why is None
+
+
+def _projection_views(proj, b, h, sq, sk, d):
+    """bf16 (B, S, H, D) views laid out as the paths' projections lay them
+    out (``chip_smoke.py``'s FLASH_SITES): one fused q|k|v product, q beside
+    a fused k|v product, or three separate products."""
+    c = h * d
+    if proj == "qkv":
+        return tuple(t.unflatten(-1, (h, d))
+                     for t in torch.zeros(b, sq, 3 * c, dtype=torch.bfloat16).chunk(3, -1))
+    if proj == "q|kv":
+        k, v = torch.zeros(b, sk, 2 * c, dtype=torch.bfloat16).chunk(2, -1)
+        q = torch.zeros(b, sq, c, dtype=torch.bfloat16)
+    else:
+        q, k, v = (torch.zeros(b, s, c, dtype=torch.bfloat16) for s in (sq, sk, sk))
+    return tuple(t.unflatten(-1, (h, d)) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("proj,b,h,sq,sk,d", [
+    ("q|kv", 3, 8, 20, 40, 40), ("qkv", 3, 8, 20, 20, 40), ("q|kv", 6, 8, 20, 77, 40),
+    ("q|kv", 3, 8, 12, 24, 80), ("q|kv", 3, 8, 6, 12, 160), ("q|k|v", 2, 1, 30, 30, 512),
+    ("q|k|v", 6, 8, 20, 4, 40), ("q|k|v", 1, 16, 17, 17, 80), ("q|k|v", 1, 1, 5, 5, 40),
+])
+def test_tma_layout_accepts_every_path_layout(proj, b, h, sq, sk, d):
+    """Every projection layout of the flash sites, at small sizes, is one
+    that TMA tensor maps can describe as it is (no copies)."""
+    for x in _projection_views(proj, b, h, sq, sk, d):
+        assert layout_error(x, tma=d <= WGMMA_MAX_HEAD_DIM) is None
+
+
+def test_tma_layout_refuses_what_tma_cannot_address():
+    """A broadcast (stride-0) dim of extent above 1 is refused; one of
+    extent 1 is never stepped, so its stride 0 is taken."""
+    q, k, v = _projection_views("qkv", 2, 2, 16, 16, 40)
+    assert "stride 0" in layout_error(q[:1].expand(2, 16, 2, 40), tma=True)  # batch
+    assert "stride 0" in layout_error(q[:, :1].expand(2, 16, 2, 40), tma=True)  # sequence
+    assert layout_error(q[:1].expand(2, 16, 2, 40), tma=False) is None
+    one = torch.zeros(16, 2, 40, dtype=torch.bfloat16).as_strided((1, 16, 2, 40),
+                                                                  (0, 80, 40, 1))
+    assert layout_error(one, tma=True) is None
+
+
+@pytest.mark.parametrize("bad,why", [
+    ("base", "aligned"), ("rows", "8-element-aligned"), ("head", "contiguous head dim"),
+])
+def test_kernel_layout_refuses_misaligned_views(bad, why):
+    """A base 8 bytes off 16, 84-element (168-byte) rows or a transposed head
+    dim is refused by every kernel, through TMA or not."""
+    if bad == "base":
+        x = torch.zeros(2, 16, 88, dtype=torch.bfloat16)[..., 4:84].unflatten(-1, (2, 40))
+    elif bad == "rows":
+        x = torch.zeros(2, 16, 84, dtype=torch.bfloat16)[..., :80].unflatten(-1, (2, 40))
+    else:
+        x = torch.zeros(2, 16, 40, 40, dtype=torch.bfloat16).transpose(2, 3)
+    for tma in (True, False):
+        assert why in layout_error(x, tma)
+
+

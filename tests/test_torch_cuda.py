@@ -60,18 +60,35 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     odd = torch.zeros(1, 64, 2, 36, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(odd, odd, odd)
+    x = torch.zeros(2, 64, 2, 40, device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 64, 2 * 40 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):  # base 8 bytes off 16
+        flash_attention(x, wide[..., 4:84].unflatten(-1, (2, 40)), x)
+    with pytest.raises(ValueError, match="stride 0"):  # a broadcast batch
+        flash_attention(x, x[:1].expand(2, 64, 2, 40), x)
     p = torch.zeros(4, 13, 48, device=cuda)
     with pytest.raises(TypeError):
         short_attention_packed(p, p, p, 4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "fused,sq,sk,d", [(2, 100, 77, 40), (2, 130, 1000, 80), (3, 200, 200, 40), (1, 33, 300, 512)]
-)
+@pytest.mark.parametrize("fused,sq,sk,d", [
+    (2, 100, 77, 40), (2, 130, 1000, 80), (3, 200, 200, 40), (1, 33, 300, 512),
+    (1, 33, 4, 40),  # sq < 64, sk below one tile (the IP branch's 4 tokens)
+    (2, 257, 1500, 40),  # a ragged KV tail after three laps of the 4-stage ring
+    (3, 130, 130, 64), (2, 70, 600, 64), (2, 100, 300, 48),  # d = 48: padded to 64
+    (3, 90, 90, 72),  # d = 72: padded to 80
+    (1, 257, 257, 80), (3, 64, 64, 80),
+    (3, 81, 81, 160), (2, 200, 300, 160),  # d = 160: 64-key tiles, a 2-stage ring
+    (1, 5, 3, 512),
+])
 def test_cuda_flash_matches_plain(cuda, fused, sq, sk, d):
     """``fused`` projections share one product: 3 = q|k|v (self-attention),
-    2 = k|v beside q (ReferenceOnly, cross-attention), 1 = none (VAE)."""
+    2 = k|v beside q (ReferenceOnly, cross-attention), 1 = none (VAE). Head
+    dims 40, 64, 80 and 160 run the wgmma kernel's four instances (192-row
+    query blocks at d = 40, 128 above; 128-key tiles, 64 at d = 160), 48 and
+    72 pad inside an instance, 512 runs the mma.sync kernel; sq and sk cover
+    tiles cut short, below one tile and over several laps of the K/V ring."""
     g = torch.Generator(device=cuda).manual_seed(0)
     heads = 2
 
@@ -88,18 +105,30 @@ def test_cuda_flash_matches_plain(cuda, fused, sq, sk, d):
     assert_close_scaled(flash_attention(q, k, v), flash_attention_plain(q, k, v))
 
 
-def _views(cuda, sq, sk, d, heads=2):
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d", [(1000, 300, 40), (1000, 77, 40), (700, 300, 80),
+                                     (400, 130, 160)])
+def test_cuda_flash_blocks_walk_many_items(cuda, sq, sk, d):
+    """6 x 8 (b, h) pairs of several query tiles each: more work items than
+    the card has SMs, so each persistent block takes several items in turn,
+    reusing its Q buffers and carrying its K/V ring from item to item."""
+    q, k, v = _views(cuda, sq, sk, d, heads=8, batch=6)
+    assert_close_scaled(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+
+
+def _views(cuda, sq, sk, d, heads=2, batch=2):
     """q beside a fused k|v product, as the ReferenceNet fuse and the
     ReferenceOnly cond half lay them out."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn(2, sq, heads * d, device=cuda, generator=g).bfloat16()
-    kv = torch.randn(2, sk, 2 * heads * d, device=cuda, generator=g).bfloat16()
+    q = torch.randn(batch, sq, heads * d, device=cuda, generator=g).bfloat16()
+    kv = torch.randn(batch, sk, 2 * heads * d, device=cuda, generator=g).bfloat16()
     k, v = kv.chunk(2, dim=-1)
     return tuple(t.unflatten(-1, (heads, d)) for t in (q, k, v))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d", [(100, 300, 40), (70, 129, 80), (33, 200, 512)])
+@pytest.mark.parametrize("sq,sk,d", [(100, 300, 40), (70, 129, 80), (33, 200, 512),
+                                     (200, 1100, 40), (40, 77, 64), (81, 162, 160)])
 def test_cuda_flash_stats_match_plain(cuda, sq, sk, d):
     """The kernel's (m, l) outputs: m in log2 units to 1e-2 absolute (bf16
     logits), l to 1e-2 relative."""
@@ -112,13 +141,26 @@ def test_cuda_flash_stats_match_plain(cuda, sq, sk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sk,d,part", [(1100, 40, 512), (600, 512, 256), (300, 80, 4096)])
+@pytest.mark.parametrize("sk,d,part", [(1100, 40, 512), (600, 512, 256), (300, 80, 4096),
+                                       (700, 160, 100), (1000, 64, 300)])
 def test_cuda_parts_match_plain(cuda, sk, d, part):
+    """Every part but the first two of each case ends inside a KV tile."""
     q, k, v = _views(cuda, 77, sk, d)
     before = flash_attention_parts.launches
     got = flash_attention_parts(q, k, v, part=part)
     assert flash_attention_parts.launches - before == -(-sk // part)
     assert_close_scaled(got, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 160, 512])
+def test_cuda_flash_without_keys_yields_zero(cuda, d):
+    """sk = 0: every row's keys are masked, so the output is 0 and the stats
+    are m = -inf, l = 0, as the Pallas kernel's safe_l gives."""
+    q, k, v = _views(cuda, 70, 0, d)
+    o, m, l = _launch(q, k, v, None, with_stats=True)
+    assert torch.equal(o, torch.zeros_like(o))
+    assert bool(torch.isneginf(m).all()) and torch.equal(l, torch.zeros_like(l))
 
 
 @pytest.mark.cuda
