@@ -8,10 +8,11 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 
 1. build: compile the port's four CUDA sources from ``musev_torch/csrc``
    (all nvcc at once, with ``-Xptxas -v``) and print the card's name and
-   power limit, each flash instance's registers and spills and the HGMMA and
-   TMA-load (UTMALDG) instructions in the flash library's SASS; fails if the
-   wgmma kernel has none of either (where ``cuobjdump`` is missing it says
-   the check was not made);
+   power limit, the registers, spills and any wgmma serialisation note of
+   each flash and short-attention instance, and the HGMMA and TMA-load
+   (UTMALDG) instructions in the flash library's SASS; fails if a flash
+   kernel has none of either (where ``cuobjdump`` is missing it says the
+   check was not made);
 2. kernels: at the paths' shapes (576^2, 24 frames, 12-frame windows
    overlapping by 4, one vision-condition frame, CFG: 78 frame rows, 8
    heads), on q/k/v laid out as the paths' projections lay them out, hold
@@ -228,7 +229,7 @@ def ptxas_report(text: str) -> dict:
         if m:
             mangled = m.group(1)
             base = (re.search(r"(flash_fwd_\w+?_kernel)", mangled)
-                    or re.search(r"(\w+_kernel)", mangled))
+                    or re.search(r"\d([A-Za-z]\w*?_kernel)", mangled))
             args = re.findall(r"Li(\d+)E", mangled)
             name = f"{base.group(1) if base else mangled}<{','.join(args)}>"
             report[name] = {}
@@ -274,37 +275,39 @@ def sass_counts(lib: Path) -> dict:
 
 def phase_build():
     """Builds every source (all nvcc at once, with ``-Xptxas -v``); prints
-    the card, each flash instance's registers and spills from that build of
-    the loaded library, and the HGMMA and UTMALDG counts of its SASS, and
-    fails if the wgmma kernel lacks either."""
+    the card, each flash and short-attention instance's registers and
+    spills and ptxas's warnings and notes from that build of the loaded
+    libraries, and the HGMMA and UTMALDG counts of the flash library's
+    SASS, and fails if a flash kernel lacks either."""
     from musev_torch.ops.kernels import _build
 
     t0 = time.time()
     outputs = _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
-    ptxas_out = outputs.get("flash_attention")
-    if ptxas_out is None:
-        print("ptxas report not made: the flash library was built before this run")
-        ptxas_out = ""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    regs = ptxas_report(ptxas_out)
+    regs = {}
+    for source in ("flash_attention", "short_attention"):
+        ptxas_out = outputs.get(source)
+        if ptxas_out is None:
+            print(f"ptxas report not made: {source} was built before this run")
+            continue
+        regs.update(ptxas_report(ptxas_out))
+        for line in ptxas_out.splitlines():  # warnings, and wgmma serialisation notes
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"ptxas {source}: {line.strip()[:200]}")
     for name, r in regs.items():
         print(f"ptxas {name}: {r}")
-    for line in ptxas_out.splitlines():  # warnings, and wgmma serialisation notes
-        if "warning" in line.lower() or "Performance Loss" in line:
-            print(f"ptxas: {line.strip()[:200]}")
     sass = sass_counts(_build.library_path("flash_attention"))
     if sass is None:
         print("SASS check not made: the toolkit has no cuobjdump")
     else:
         for name, n in sass.items():
             print(f"SASS {name}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG")
-        wgmma = {k: n for k, n in sass.items() if k.startswith("flash_fwd_wgmma_kernel")}
-        if not wgmma or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0 for n in wgmma.values()):
-            fail(f"the wgmma flash kernel lacks HGMMA or UTMALDG instructions: {sass}")
+        if not sass or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0 for n in sass.values()):
+            fail(f"a flash kernel lacks HGMMA or UTMALDG instructions: {sass}")
     print(f"phase build: {time.time() - t0:.1f} s")
     return card, dict(ptxas=regs, sass=sass)
 
@@ -532,11 +535,13 @@ def profile_path(torch, run, args):
           f"{busy_ms:.0f} ms = {busy_ms / wall_ms:.1%}; top kernels:")
     for key, ms, n in rows[:12]:
         print(f"  {ms:9.1f} ms {ms / busy_ms:6.1%} x{n:<6d} {key[:110]}")
-    mine = {name: sum(r[1] for r in rows if name in r[0])
-            for name in ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel", "flash_stream_kernel",
-                         "short_attn_kernel", "relayout_kernel")}
-    print(f"  port kernels: {mine}")
+    names = ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "flash_stream_kernel",
+             "short_attn_kernel", "relayout_kernel")
+    mine = {name: sum(r[1] for r in rows if name in r[0]) for name in names}
+    calls = {name: sum(r[2] for r in rows if name in r[0]) for name in names}
+    print(f"  port kernels: ms {mine}, launches {calls}")
     return dict(wall_ms=wall_ms, device_ms=busy_ms, port_kernels_ms=mine,
+                port_kernel_launches=calls,
                 top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]]), res
 
 

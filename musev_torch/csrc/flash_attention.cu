@@ -71,11 +71,13 @@
 // contiguous (B, Sq, H, D) from registers. A row whose keys are all masked
 // (sk = 0) yields 0 (the Pallas kernel's safe_l).
 //
-// Head dims above 160 (the VAE mid-block, d = 512, 2-4 launches per clip)
-// keep the mma.sync design (flash_fwd_mma_kernel): 256 fp32 accumulators per
-// thread do not fit a warpgroup's registers beside S, so four warps share each
-// 16-row group and each owns a quarter of the output columns. Dispatch is by
-// head dim and fixed: d <= 160 always takes the wgmma kernel.
+// Head dims from 161 to 512 (the VAE mid-block, d = 512, 2-4 launches per
+// clip) take flash_fwd_wide_kernel, the same machinery (TMA maps, mbarrier
+// K/V buffers, wgmma, setmaxnreg) with two consumer warpgroups sharing 64
+// query rows: each computes half of Q K^T's depth, the halves are summed
+// through shared memory, and each owns half of the 512 output columns (see
+// its note). Dispatch is by head dim and fixed. Every instance reads q/k/v
+// through TMA, so no head dim takes a stride-0 broadcast.
 //
 // Softmax stats (K1s): when m/l are given, each row's running max m (of
 // s * scale * log2 e) and l = sum exp2(s * scale * log2 e - m) are written in
@@ -97,46 +99,6 @@ constexpr int kNoEncoder = -3;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from one column of consecutive rows, packed low = first row.
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p, int stride) {
-  uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint16_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + rows) of one (b, h) slice into shared memory as a
-// (rows, DP) tile with row stride LDS, zero-filling rows >= n and cols >= d.
-template <int DP, int LDS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long s_stride, int row0, int rows, int n,
-                                          int d, int tid, int nthreads) {
-  constexpr int kVec = 8;  // 8 bf16 = 16 bytes per thread per step
-  constexpr int kChunks = DP / kVec;
-  for (int i = tid; i < rows * kChunks; i += nthreads) {
-    int r = i / kChunks;
-    int c = (i - r * kChunks) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    int gr = row0 + r;
-    if (gr < n && c < d) {
-      val = *reinterpret_cast<const uint4*>(base + (long long)gr * s_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
 }
 
 // ---- Hopper primitives: mbarriers, TMA, wgmma, named barriers -------------
@@ -363,6 +325,40 @@ template <> __device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <> __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // ---- Warp-specialised wgmma/TMA kernel, head dims up to 160 -----------------
 
@@ -451,6 +447,92 @@ __device__ __forceinline__ void online_softmax(float* s, float c, int key0, int 
   }
   l_lo = l_lo * alpha_lo + sum_lo;
   l_hi = l_hi * alpha_hi + sum_hi;
+}
+
+// online_softmax for tile j of BK keys: the sign of c and whether the tile
+// is the ragged last one pick the instance (a branch around the softmax,
+// never around a wgmma).
+template <int N, int BK>
+__device__ __forceinline__ void softmax_tile(float* s, float c, int j, int sk, int t,
+                                             float& m_lo, float& m_hi, float& l_lo,
+                                             float& l_hi, float& alpha_lo, float& alpha_hi) {
+  const int key0 = j * BK;
+  if (c >= 0.f) {
+    if (key0 + BK > sk)
+      online_softmax<N, false, true>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
+    else
+      online_softmax<N, false, false>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo,
+                                      alpha_hi);
+  } else {
+    online_softmax<N, true, true>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
+  }
+}
+
+// P as the A operand of P V: n8 blocks 2kk and 2kk + 1 of S are k-step kk.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t* p, const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float* o, float alpha_lo, float alpha_hi) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    o[i] *= alpha_lo;
+    o[i + 1] *= alpha_lo;
+    o[i + 2] *= alpha_hi;
+    o[i + 3] *= alpha_hi;
+  }
+}
+
+// Epilogue of one work item for this thread's rows row_lo and row_lo + 8:
+// the row sums l over the row's four threads, O normalised into the
+// contiguous (B, Sq, H, D) output (NB n8 blocks from column col0, those
+// below D), and, with `stats`, the rows' (m, l).
+template <int NB>
+__device__ __forceinline__ void write_rows(const float* o_acc, float m_lo, float m_hi, float l_lo,
+                                           float l_hi, int row_lo, int t, int b, int h, int H,
+                                           int Sq, int D, int col0, bool stats,
+                                           __nv_bfloat16* o, float* m_out, float* l_out) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
+  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  const int row_hi = row_lo + 8;
+  if (stats && t == 0) {
+    const long long st = (long long)b * Sq * H + h;
+    if (row_lo < Sq) {
+      m_out[st + (long long)row_lo * H] = m_lo;
+      l_out[st + (long long)row_lo * H] = l_lo;
+    }
+    if (row_hi < Sq) {
+      m_out[st + (long long)row_hi * H] = m_hi;
+      l_out[st + (long long)row_hi * H] = l_hi;
+    }
+  }
+  const long long o_ss = (long long)H * D;
+  __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D + col0;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col0 + 8 * i < D) {
+      if (row_lo < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
+            pack_bf16(o_acc[4 * i] * inv_lo, o_acc[4 * i + 1] * inv_lo);
+      if (row_hi < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
+            pack_bf16(o_acc[4 * i + 2] * inv_hi, o_acc[4 * i + 3] * inv_hi);
+    }
+  }
 }
 
 template <class C>
@@ -593,40 +675,12 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       wg_commit();
       pin<NOR>(o_acc);
     };
-    auto rescale_o = [&]() {
-#pragma unroll
-      for (int i = 0; i < NOR; i += 4) {
-        o_acc[i] *= alpha_lo;
-        o_acc[i + 1] *= alpha_lo;
-        o_acc[i + 2] *= alpha_hi;
-        o_acc[i + 3] *= alpha_hi;
-      }
-    };
+    auto rescale_o = [&]() { rescale<NOR>(o_acc, alpha_lo, alpha_hi); };
     auto softmax = [&](int j) {
-      const int key0 = j * BK;
-      const bool ragged = key0 + BK > Sk;
-      if (scale_log2 >= 0.f) {
-        if (ragged)
-          online_softmax<NSR, false, true>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo,
-                                           l_hi, alpha_lo, alpha_hi);
-        else
-          online_softmax<NSR, false, false>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo,
-                                            l_hi, alpha_lo, alpha_hi);
-      } else {
-        online_softmax<NSR, true, true>(s_acc, scale_log2, key0, Sk, t, m_lo, m_hi, l_lo, l_hi,
-                                        alpha_lo, alpha_hi);
-      }
+      softmax_tile<NSR, BK>(s_acc, scale_log2, j, Sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo,
+                            alpha_hi);
     };
-    // P as the A operand of P V: n8 blocks 2kk and 2kk + 1 of S are k-step kk.
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        p_frag[4 * kk] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
-        p_frag[4 * kk + 1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
-        p_frag[4 * kk + 2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
-        p_frag[4 * kk + 3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
-      }
-    };
+    auto pack = [&]() { pack_p<BK>(p_frag, s_acc); };
     auto wait_k = [&](int j) {
       mbar_wait(&full_k[(kv0 + j) % NS], ((kv0 + j) / NS) & 1);
     };
@@ -661,7 +715,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
         mbar_arrive(&empty_k[kv0 % NS]);
         if (nt == 1) mbar_arrive(&empty_q[qb]);
         softmax(0);
-        pack_p();
+        pack();
         for (int j = 1; j < nt; ++j) {
           wait_k(j);
           bar_sync(my_turn, kTurn);
@@ -679,7 +733,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
           pin<NOR>(o_acc);
           pin<NP>(p_frag);
           mbar_arrive(&empty_v[(kv0 + j - 1) % NS]);
-          pack_p();
+          pack();
         }
         rescale_o();
         wait_v(nt - 1);
@@ -693,40 +747,8 @@ __global__ void __launch_bounds__(C::kThreads, 1)
         mbar_arrive(&empty_q[qb]);
       }
 
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-      }
-      const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-      const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-      const int row_lo = q0 + 64 * c + 16 * warp + g;
-      const int row_hi = row_lo + 8;
-      if (m_out != nullptr && t == 0) {
-        const long long st = (long long)b * Sq * H + h;
-        if (row_lo < Sq) {
-          m_out[st + (long long)row_lo * H] = m_lo;
-          l_out[st + (long long)row_lo * H] = l_lo;
-        }
-        if (row_hi < Sq) {
-          m_out[st + (long long)row_hi * H] = m_hi;
-          l_out[st + (long long)row_hi * H] = l_hi;
-        }
-      }
-      const long long o_ss = (long long)H * D;
-      __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D;
-#pragma unroll
-      for (int i = 0; i < DN / 8; ++i) {
-        const int col = 8 * i + 2 * t;
-        if (8 * i < D) {
-          if (row_lo < Sq)
-            *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
-                pack_bf16(o_acc[4 * i] * inv_lo, o_acc[4 * i + 1] * inv_lo);
-          if (row_hi < Sq)
-            *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
-                pack_bf16(o_acc[4 * i + 2] * inv_hi, o_acc[4 * i + 3] * inv_hi);
-        }
-      }
+      write_rows<DN / 8>(o_acc, m_lo, m_hi, l_lo, l_hi, q0 + 64 * c + 16 * warp + g, t, b, h, H,
+                         Sq, D, 0, m_out != nullptr, o, m_out, l_out);
     }
   }
 }
@@ -807,198 +829,260 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return cudaGetLastError();
 }
 
-// ---- mma.sync kernel, head dims above 160 (the VAE mid-block) ---------------
+// ---- Warp-specialised wgmma/TMA kernel, head dims 161 to 512 -----------------
+//
+// The VAE mid-block (one head, d = 512). 64 query rows per work item; a
+// 64 x 512 fp32 accumulator is 256 registers a thread in one warpgroup, so
+// two consumer warpgroups share the rows, each owning 256 output columns
+// (128 accumulator registers). Each logit is computed once: consumer c takes
+// depth slabs 4c..4c+3 of Q K^T (m64n64, 16 k-steps), the two partial S
+// tiles are exchanged through shared memory (fp32, 16 KB each) and summed in
+// the same order by both, so both hold the same S and run the same softmax
+// (one exp2 per logit twice: negligible beside 2048 tensor flops per logit)
+// and keep P in registers for P V (m64n256, V's four slabs of the consumer's
+// columns, MN-major). Shared memory: Q 64 KB (8 slabs of 64 columns, 128-byte
+// swizzle: a TMA box row holds at most 128 bytes), one K and one V tile of 64
+// keys (64 KB each) and the exchange (32 KB): 224 KB of the 227. One stage
+// each of K and V (rather than two of 32 keys) keeps the wgmma at n64, where
+// reading Q from shared memory does not outrun the tensor cores; the producer
+// orders its loads K(j+1) before V(j), so K(j+1) lands while P V(j - 1) and
+// the softmax of j run and V(j) while Q K^T(j + 1) runs. Persistent blocks,
+// one per SM, walk (b, h, query tile) items with the tiles of one (b, h)
+// adjacent, so blocks on the card at one time share K/V in L2.
+// Bound: at the VAE site (16, 1, 5184, 5184, 512) the tensor cores need
+// 0.89 ms; but every 64-row item reads all of its K and V from L2 (10.6 MB,
+// 13.8 GB over the 1,296 items), which likely binds first. A 2-CTA cluster
+// with TMA multicast of K/V would halve that stream; not done here.
+namespace wide {
+constexpr int BK = 64;         // keys per tile
+constexpr int SW = 128;        // swizzle bytes, one slab row
+constexpr int kSlabCols = 64;  // columns per slab
+constexpr int kSlabs = 8;      // 512 columns
+constexpr int kRows = 64;      // query rows per work item
+constexpr int kQSlab = kRows * SW;
+constexpr int kKVSlab = BK * SW;
+constexpr int kQBytes = kSlabs * kQSlab;
+constexpr int kKVBytes = kSlabs * kKVSlab;
+constexpr int kKOff = kQBytes;
+constexpr int kVOff = kKOff + kKVBytes;
+constexpr int kXOff = kVOff + kKVBytes;
+constexpr int NSR = BK / 2;       // S accumulator floats per thread
+constexpr int NOR = 256 / 2;      // O accumulator floats per thread (256 columns)
+constexpr int NP = BK / 4;        // P fragment registers per thread
+constexpr int kXBytes = 2 * NSR * 128 * 4;
+constexpr int kBarOff = kXOff + kXBytes;
+constexpr int kBytes = kBarOff + 6 * 8 + 1024;  // + alignment slack
+constexpr int kThreads = 3 * 128;
+constexpr int kConsumers = 2 * 128;
+static_assert(kBytes <= 232448, "block resources");
+}  // namespace wide
 
-template <int DP, int WQ, int WD, int BK>
-__global__ void __launch_bounds__(WQ* WD * 32)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
-                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh, float scale_log2,
-                     float* __restrict__ m_out, float* __restrict__ l_out) {
-  constexpr int BQ = 16 * WQ;
-  constexpr int NT = WQ * WD * 32;
-  constexpr int LDS = DP + 8;      // row stride: conflict-free 32-bit fragment loads
-  constexpr int DW = DP / WD;      // output columns owned by one warp
-  constexpr int NO = DW / 8;       // output n8 tiles per warp
-  constexpr int NS = BK / 8;       // logits n8 tiles per warp
-  static_assert(DP % 16 == 0 && DW % 8 == 0 && BK % 16 == 0, "tile shape");
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ o, int H, int Sq, int Sk, int D,
+                          int q_tiles, int items, float scale_log2, float* __restrict__ m_out,
+                          float* __restrict__ l_out) {
+  using namespace wide;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = full_q + 2;
+  uint64_t* empty_k = full_q + 3;
+  uint64_t* full_v = full_q + 4;
+  uint64_t* empty_v = full_q + 5;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LDS;
-  __nv_bfloat16* Vs = Ks + BK * LDS;
+  const int nt = (Sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within an 8-row group
-  const int t = lane & 3;   // column pair within a k16 step
-  const int wq = warp / WD;
-  const int wd = warp - wq * WD;
-  const int r0 = wq * 16;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 6; i += 2) {
+      mbar_init(&full_q[i], 1);
+      mbar_init(&full_q[i + 1], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  load_tile<DP, LDS>(Qs, qb, q_ss, q0, BQ, Sq, D, tid, NT);
-
-  float acc[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, rows g and g + 8
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's partial row sums
-
-  const __nv_bfloat16* qa = Qs + (r0 + g) * LDS + 2 * t;
-  for (int kv0 = 0; kv0 < Sk; kv0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile<DP, LDS>(Ks, kb, k_ss, kv0, BK, Sk, D, tid, NT);
-    load_tile<DP, LDS>(Vs, vb, v_ss, kv0, BK, Sk, D, tid, NT);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and BK keys.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld_u32(qa + kk);
-      a[1] = ld_u32(qa + 8 * LDS + kk);
-      a[2] = ld_u32(qa + kk + 8);
-      a[3] = ld_u32(qa + 8 * LDS + kk + 8);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LDS + kk + 2 * t;
-        mma_bf16_16816(s[j], a, ld_u32(kp), ld_u32(kp + 8));
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load; K/V tiles count on
+    // across items (`kv`), so each buffer's phase is kv & 1 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      auto load = [&](uint64_t* full, uint64_t* empty, const CUtensorMap* map, int off, int kv,
+                      int row, int h, int b) {
+        mbar_wait(empty, (kv & 1) ^ 1);  // the first use passes at once
+        mbar_expect_tx(full, kKVBytes);
+        for (int s = 0; s < kSlabs; ++s)
+          tma_load(smem + off + s * kKVSlab, map, full, kSlabCols * s, row, h, b);
+      };
+      int kv = 0;
+      for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it, kv += nt) {
+        const int bh = item / q_tiles;
+        const int q0 = (item - bh * q_tiles) * kRows;
+        const int b = bh / H;
+        const int h = bh - b * H;
+        mbar_wait(empty_q, (it & 1) ^ 1);
+        mbar_expect_tx(full_q, kQBytes);
+        for (int s = 0; s < kSlabs; ++s)
+          tma_load(smem + s * kQSlab, &tm_q, full_q, kSlabCols * s, q0, h, b);
+        if (nt > 0) load(full_k, empty_k, &tm_k, kKOff, kv, 0, h, b);
+        for (int j = 0; j < nt; ++j) {
+          if (j + 1 < nt) load(full_k, empty_k, &tm_k, kKOff, kv + j + 1, (j + 1) * BK, h, b);
+          load(full_v, empty_v, &tm_v, kVOff, kv + j, j * BK, h, b);
+        }
       }
     }
+  } else {
+    // ---- consumers: 64 query rows, 256 output columns each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    // wgmma descriptors of this consumer's halves of Q and K (depth) and of V
+    // (columns); a k-step adds its byte offset / 16 to the start address field
+    const uint64_t q_desc = smem_desc<SW>(smem_addr(smem) + c * 4 * kQSlab, 16, 8 * SW);
+    const uint64_t k_desc = smem_desc<SW>(smem_addr(smem + kKOff) + c * 4 * kKVSlab, 16, 8 * SW);
+    const uint64_t v_desc = smem_desc<SW>(smem_addr(smem + kVOff) + c * 4 * kKVSlab, kKVSlab, 8 * SW);
+    float* x_mine = reinterpret_cast<float*>(smem + kXOff) + c * NSR * 128 + tid;
+    const float* x_other = reinterpret_cast<const float*>(smem + kXOff) + (1 - c) * NSR * 128 + tid;
 
-    // Scale into log2 units, mask the ragged KV tail, online softmax.
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+    float s_acc[NSR];
+    float o_acc[NOR];
+    uint32_t p_frag[NP];
+    float m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi;
+    int kv0 = 0;
+
+    // partial S over this consumer's 256 columns of depth: 16 k-steps, four
+    // per slab, each 32 bytes further into the slab's swizzled rows. The
+    // descriptors are formed at the point of use from opaque copies of the
+    // bases: hoisted out of the loop, 32 of them held 64 registers and made
+    // ptxas spill.
+    auto issue_qk = [&]() {
+      uint64_t qd = q_desc, kd = k_desc;
+      asm volatile("" : "+l"(qd), "+l"(kd));
+      pin<NSR>(s_acc);
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      int col = kv0 + j * 8 + 2 * t;
+      for (int s = 0; s < 16; ++s)
+        wgmma_ss<BK>(s_acc, qd + ((s / 4) * kQSlab + (s % 4) * 32) / 16,
+                     kd + ((s / 4) * kKVSlab + (s % 4) * 32) / 16, s > 0);
+      wg_commit();
+      pin<NSR>(s_acc);
+    };
+    // O += P V over this consumer's 256 columns: four slabs (LBO) of
+    // 64 columns, 8-key groups 8 * SW bytes apart (SBO)
+    auto issue_pv = [&]() {
+      uint64_t vd = v_desc;
+      asm volatile("" : "+l"(vd));
+      pin<NOR>(o_acc);
+      pin<NP>(p_frag);
+      wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int c = col + (e & 1);
-        s[j][e] = c < Sk ? s[j][e] * scale_log2 : -INFINITY;
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<256>(o_acc, p_frag + 4 * kk, vd + kk * SW);
+      wg_commit();
+      pin<NOR>(o_acc);
+    };
+    // the two partial S tiles summed, in one order by both consumers
+    auto exchange = [&]() {
+#pragma unroll
+      for (int i = 0; i < NSR; ++i) x_mine[i * 128] = s_acc[i];
+      bar_sync(1, kConsumers);
+#pragma unroll
+      for (int i = 0; i < NSR; ++i) s_acc[i] += x_other[i * 128];  // a + b == b + a, bit for bit
+      bar_sync(2, kConsumers);  // both have read before either writes again
+    };
+    auto rescale_o = [&]() { rescale<NOR>(o_acc, alpha_lo, alpha_hi); };
+    auto softmax = [&](int j) {
+      softmax_tile<NSR, BK>(s_acc, scale_log2, j, Sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo,
+                            alpha_hi);
+    };
+    auto pack = [&]() { pack_p<BK>(p_frag, s_acc); };
+
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it, kv0 += nt) {
+      const int bh = item / q_tiles;
+      const int q0 = (item - bh * q_tiles) * kRows;
+      const int b = bh / H;
+      const int h = bh - b * H;
+#pragma unroll
+      for (int i = 0; i < NOR; ++i) o_acc[i] = 0.f;
+      m_lo = m_hi = -INFINITY;
+      l_lo = l_hi = 0.f;
+      alpha_lo = alpha_hi = 1.f;
+
+      mbar_wait(full_q, it & 1);
+      if (nt > 0) {
+        mbar_wait(full_k, kv0 & 1);
+        issue_qk();
+        wg_wait<0>();
+        pin<NSR>(s_acc);
+        mbar_arrive(empty_k);
+        if (nt == 1) mbar_arrive(empty_q);
+        exchange();
+        softmax(0);
+        pack();
+        for (int j = 1; j < nt; ++j) {
+          mbar_wait(full_k, (kv0 + j) & 1);
+          issue_qk();
+          rescale_o();
+          mbar_wait(full_v, (kv0 + j - 1) & 1);
+          issue_pv();
+          wg_wait<1>();  // Q K^T of tile j done; P V of tile j - 1 may run on
+          pin<NSR>(s_acc);
+          mbar_arrive(empty_k);
+          if (j == nt - 1) mbar_arrive(empty_q);  // Q's last use
+          exchange();
+          softmax(j);
+          wg_wait<0>();
+          pin<NOR>(o_acc);
+          pin<NP>(p_frag);
+          mbar_arrive(empty_v);
+          pack();
+        }
+        rescale_o();
+        mbar_wait(full_v, (kv0 + nt - 1) & 1);
+        issue_pv();
+        wg_wait<0>();
+        pin<NOR>(o_acc);
+        mbar_arrive(empty_v);
+      } else {
+        mbar_arrive(empty_q);
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    float mn_lo = fmaxf(m_lo, mx_lo);
-    float mn_hi = fmaxf(m_hi, mx_hi);
-    // A row with no unmasked key so far keeps max -inf: subtract 0 instead,
-    // so exp2(-inf) = 0 and no inf - inf NaN appears.
-    float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-    float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-    float alpha_lo = exp2f(m_lo - base_lo);
-    float alpha_hi = exp2f(m_hi - base_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - base_lo);
-      s[j][1] = exp2f(s[j][1] - base_lo);
-      s[j][2] = exp2f(s[j][2] - base_hi);
-      s[j][3] = exp2f(s[j][3] - base_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      acc[i][0] *= alpha_lo;
-      acc[i][1] *= alpha_lo;
-      acc[i][2] *= alpha_hi;
-      acc[i][3] *= alpha_hi;
-    }
 
-    // O += P V over this warp's output columns.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LDS + wd * DW + g;
-#pragma unroll
-      for (int i = 0; i < NO; ++i) {
-        uint32_t b0 = ld_col_pair(vp + i * 8, LDS);
-        uint32_t b1 = ld_col_pair(vp + 8 * LDS + i * 8, LDS);
-        mma_bf16_16816(acc[i], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-  const int row_lo = q0 + r0 + g;
-  const int row_hi = row_lo + 8;
-  if (m_out != nullptr && t == 0 && wd == 0) {
-    const long long st = (long long)b * Sq * H + h;
-    if (row_lo < Sq) {
-      m_out[st + (long long)row_lo * H] = m_lo;
-      l_out[st + (long long)row_lo * H] = l_lo;
-    }
-    if (row_hi < Sq) {
-      m_out[st + (long long)row_hi * H] = m_hi;
-      l_out[st + (long long)row_hi * H] = l_hi;
-    }
-  }
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    int col = wd * DW + i * 8 + 2 * t;
-    if (col < D) {
-      if (row_lo < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
-            pack_bf16(acc[i][0] * inv_lo, acc[i][1] * inv_lo);
-      if (row_hi < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
-            pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
+      // both consumers hold the same (m, l): the first writes the stats
+      write_rows<NOR / 4>(o_acc, m_lo, m_hi, l_lo, l_hi, q0 + 16 * warp + g, t, b, h, H, Sq, D,
+                          256 * c, m_out != nullptr && c == 0, o, m_out, l_out);
     }
   }
 }
 
-template <int DP, int WQ, int WD, int BK>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Sq, int Sk, int D, const long long* qs, const long long* ks,
-                   const long long* vs, float scale, float* m, float* l,
-                   cudaStream_t stream) {
-  constexpr int BQ = 16 * WQ;
-  constexpr int LDS = DP + 8;
-  const size_t smem = (size_t)(BQ + 2 * BK) * LDS * sizeof(__nv_bfloat16);
-  auto kernel = flash_fwd_mma_kernel<DP, WQ, WD, BK>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  kernel<<<grid, WQ * WD * 32, smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(o), H, Sq,
-      Sk, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+                int Sk, int D, const long long* qs, const long long* ks, const long long* vs,
+                float scale, float* m, float* l, cudaStream_t stream) {
+  using namespace wide;
+  CUtensorMap tq, tk, tv;
+  if (Sk == 0) k = v = q, ks = vs = qs;  // K/V maps never read: describe q
+  int err = tensor_map<SW>(&tq, q, B, Sq, H, D, qs, kRows);
+  if (err == 0) err = tensor_map<SW>(&tk, k, B, Sk, H, D, ks, BK);
+  if (err == 0) err = tensor_map<SW>(&tv, v, B, Sk, H, D, vs, BK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const int q_tiles = (Sq + kRows - 1) / kRows;
+  const long long items = (long long)q_tiles * B * H;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int blocks = (int)(items < sms ? items : sms);
+  flash_fwd_wide_kernel<<<blocks, kThreads, kBytes, stream>>>(
+      tq, tk, tv, reinterpret_cast<__nv_bfloat16*>(o), H, Sq, Sk, D, q_tiles, (int)items,
       scale * kLog2e, m, l);
   return cudaGetLastError();
 }
@@ -1032,7 +1116,7 @@ int musev_flash_attention_bf16(const void* q, const void* k, const void* v, void
     return launch_wgmma<Config<80, 80, 128, 3, 2, 32, 2>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
   if (D <= 160)
     return launch_wgmma<Config<160, 160, 64, 2, 2, 128, 2>>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
-  if (D <= 512) return launch_mma<512, 2, 4, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
+  if (D <= 512) return launch_wide(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, mf, lf, st);
   return -1;
 }
 

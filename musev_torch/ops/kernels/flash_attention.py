@@ -5,9 +5,9 @@ The kernel (``csrc/flash_attention.cu``) replaces two Pallas TPU kernels of
 K/V) and ``_carry_kernel`` (K3, K/V parts carried over a grid axis). On Hopper
 one kernel loops over every KV tile with the softmax state in registers, so
 both regimes are one launch; the TPU's block-size plans have no counterpart.
-Head dims up to ``WGMMA_MAX_HEAD_DIM`` (160) run the warp-specialised
-wgmma/TMA kernel, which reads q, k and v through TMA tensor maps; larger
-ones (the VAE's 512) the mma.sync kernel.
+Every head dim runs a warp-specialised wgmma/TMA kernel that reads q, k and
+v through TMA tensor maps: up to 160 with 64-row consumer warpgroups, above
+(the VAE's 512) with two consumer warpgroups sharing 64 query rows.
 
 ``flash_attention_parts`` is the JAX package's split-merge route
 (``_flash_unroll(with_stats=True)`` per KV part, merged by ``_merge_parts``,
@@ -28,8 +28,6 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 512
-# up to this head dim the wgmma/TMA kernel serves, above it the mma.sync kernel
-WGMMA_MAX_HEAD_DIM = 160
 LOG2E = 1.4426950408889634
 
 
@@ -99,9 +97,9 @@ def layout_error(x: torch.Tensor, tma: bool = False) -> Optional[str]:
 
 
 def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        max_head_dim: int, tma_max_head_dim: int = 0) -> None:
+                        max_head_dim: int, tma: bool = False) -> None:
     """What the (B, S, H, D) attention kernels take on CUDA; raises otherwise.
-    Head dims up to ``tma_max_head_dim`` are read through TMA tensor maps."""
+    ``tma``: the kernel reads q, k and v through TMA tensor maps."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
@@ -110,7 +108,7 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     if d % 8 or d > max_head_dim:
         raise ValueError(f"{name} kernel: head dim {d} unsupported")
     for label, x in (("q", q), ("k", k), ("v", v)):
-        why = layout_error(x, tma=d <= tma_max_head_dim)
+        why = layout_error(x, tma)
         if why is not None:
             raise ValueError(f"{name} kernel: {label} {why}")
 
@@ -123,7 +121,7 @@ def strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float],
             with_stats: bool):
     """One kernel launch; returns (o, m, l), m and l None without stats."""
-    check_kernel_inputs("flash_attention", q, k, v, MAX_HEAD_DIM, WGMMA_MAX_HEAD_DIM)
+    check_kernel_inputs("flash_attention", q, k, v, MAX_HEAD_DIM, tma=True)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
@@ -151,13 +149,13 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors with batch, sequence and head
-    strides that are multiples of 8 elements and, at head dims up to 160,
-    not 0 (no broadcast views); returns contiguous (B, Sq, H, D).
+    strides that are multiples of 8 elements and not 0 (no broadcast views);
+    returns contiguous (B, Sq, H, D).
 
     CUDA inputs must be bf16 with a contiguous head dim d (a multiple of 8,
     at most 512) and a 16-byte aligned base; the views of a fused QKV
-    projection qualify as they are. A broadcast view at d <= 160 raises:
-    the caller makes it contiguous.
+    projection qualify as they are. A broadcast view raises at every head
+    dim (TMA cannot step it): the caller makes it contiguous.
     """
     _check(q, k, v)
     if q.device.type == "cpu":

@@ -50,6 +50,27 @@ def short_attention_plain(
     return out.reshape(n, t, c).to(q.dtype)
 
 
+def layout_error(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
+) -> Optional[str]:
+    """Why the kernel cannot read the (N, T, C) views q, k and v as they
+    are, or None. It copies and writes 16-byte vectors, so it needs a head
+    dim that is a multiple of 8 (at most ``MAX_HEAD_DIM``), strides
+    (T*ld, ld, 1) with one ld for the three that is a multiple of 8, and
+    16-byte aligned bases."""
+    t, d = q.shape[1], q.shape[2] // n_heads
+    if d % 8 or d > MAX_HEAD_DIM:
+        return f"head dim {d} must be a multiple of 8 up to {MAX_HEAD_DIM}"
+    ld = q.stride(1)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride() != (t * ld, ld, 1) or ld % 8:
+            return (f"{name} strides {x.stride()} must be (T*ld, ld, 1) with one ld "
+                    "for q, k and v, a multiple of 8")
+        if x.data_ptr() % 16:
+            return f"{name} is not 16-byte aligned"
+    return None
+
+
 def short_attention_packed(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -59,7 +80,12 @@ def short_attention_packed(
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Self-attention over packed (N, T, C) rows, T <= 64; returns contiguous
-    (N, T, C). ``kv_len`` counts the valid leading keys (default T)."""
+    (N, T, C). ``kv_len`` counts the valid leading keys (default T).
+
+    CUDA inputs must be bf16 with strides (T*ld, ld, 1), one ld for q, k and
+    v that is a multiple of 8 (the fused projection's 3C qualifies), a head
+    dim C / n_heads that is a multiple of 8 and at most 256, and 16-byte
+    aligned bases (``layout_error``); anything else raises ``ValueError``."""
     if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("short_attention_packed takes three (N, T, C) tensors of one shape")
     if not (q.device == k.device == v.device) or not (q.dtype == k.dtype == v.dtype):
@@ -78,15 +104,10 @@ def short_attention_packed(
         raise ValueError(f"short_attention_packed: unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"short_attention kernel takes bfloat16, got {q.dtype}")
-    if d % 2 or d > MAX_HEAD_DIM:
-        raise ValueError(f"short_attention kernel: head dim {d} unsupported")
+    why = layout_error(q, k, v, n_heads)
+    if why is not None:
+        raise ValueError(f"short_attention kernel: {why}")
     ld = q.stride(1)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride() != (t * ld, ld, 1) or ld % 2 or x.data_ptr() % 4:
-            raise ValueError(
-                f"short_attention kernel: {name} strides {x.stride()} must be "
-                "(T*ld, ld, 1) with one even ld for q, k and v, 4-byte aligned"
-            )
     if scale is None:
         scale = d**-0.5
     out = torch.empty((n, t, c), dtype=q.dtype, device=q.device)

@@ -26,9 +26,11 @@ from musev_torch.ops.kernels.flash_attention import (
     flash_attention_plain,
     flash_attention_stats_plain,
     layout_error,
-    WGMMA_MAX_HEAD_DIM,
 )
 from musev_torch.ops.kernels.flash_stream import flash_stream
+from musev_torch.ops.kernels.short_attention import (
+    layout_error as short_layout_error,
+)
 from musev_torch.ops.kernels.short_attention import (
     short_attention_packed,
     short_attention_plain,
@@ -204,15 +206,14 @@ def test_kernel_library_name_tracks_source():
 
 @pytest.mark.parametrize("d", [8, 40, 48, 64, 72, 80, 96, 160, 168, 512])
 def test_flash_broadcast_refused_only_on_the_tma_kernel(d):
-    """Dispatch is fixed by head dim: up to 160 the wgmma kernel reads q/k/v
-    through TMA, which cannot step a broadcast (stride-0) batch; above it
-    the mma.sync kernel takes one as it is."""
-    tma = d <= WGMMA_MAX_HEAD_DIM
-    assert tma == (d <= 160)
+    """``flash_attention`` reads q/k/v through TMA at every head dim (the
+    wgmma kernels up to 160 and the wide one above), and TMA cannot step a
+    broadcast (stride-0) batch, so every head dim refuses one; the cp.async
+    kernel (``flash_stream``, tma=False) takes it as it is."""
     k = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16).expand(3, 16, 2, d)
-    assert layout_error(k.contiguous(), tma) is None
-    why = layout_error(k, tma)
-    assert ("stride 0" in why) if tma else why is None
+    assert layout_error(k.contiguous(), tma=True) is None
+    assert "stride 0" in layout_error(k, tma=True)
+    assert layout_error(k, tma=False) is None
 
 
 def _projection_views(proj, b, h, sq, sk, d):
@@ -240,7 +241,7 @@ def test_tma_layout_accepts_every_path_layout(proj, b, h, sq, sk, d):
     """Every projection layout of the flash sites, at small sizes, is one
     that TMA tensor maps can describe as it is (no copies)."""
     for x in _projection_views(proj, b, h, sq, sk, d):
-        assert layout_error(x, tma=d <= WGMMA_MAX_HEAD_DIM) is None
+        assert layout_error(x, tma=True) is None
 
 
 def test_tma_layout_refuses_what_tma_cannot_address():
@@ -271,3 +272,38 @@ def test_kernel_layout_refuses_misaligned_views(bad, why):
         assert why in layout_error(x, tma)
 
 
+
+
+def _short_views(n, t, c, width=None, offset=0):
+    """q, k, v as column views of one fused (N, T, width) projection."""
+    qkv = torch.zeros(n, t, width or 3 * c, dtype=torch.bfloat16)[..., offset:]
+    return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:3 * c]
+
+
+@pytest.mark.parametrize("case,heads,why", [
+    ((31, 13, 320), 8, None),  # L0 temporal: D = 40
+    ((9, 13, 640), 8, None),  # L1: D = 80
+    ((4, 13, 1280), 8, None),  # L2 and L3: D = 160
+    ((3, 64, 256), 1, None),  # T = 64, D = 256
+    ((5, 13, 288), 8, "head dim 36 must be a multiple of 8 up to 256"),
+    ((5, 13, 264), 1, "head dim 264 must be a multiple of 8 up to 256"),
+    ("ld", 8, "a multiple of 8"),  # rows of 3C + 4 elements
+    ("base", 8, "not 16-byte aligned"),  # the views start 4 elements in
+    ("strides", 8, "one ld for q, k and v"),  # k a view of another product
+])
+def test_short_kernel_layout_error(case, heads, why):
+    """What the short kernel refuses on the card, and why: it copies and
+    writes 16-byte vectors, so the head dim, the row stride and the bases
+    must allow them; the paths' fused projections at every temporal site
+    pass."""
+    if case == "ld":
+        q, k, v = _short_views(4, 13, 320, width=3 * 320 + 4)
+    elif case == "base":
+        q, k, v = _short_views(4, 13, 320, width=3 * 320 + 8, offset=4)
+    elif case == "strides":
+        q, _, v = _short_views(4, 13, 320)
+        k = torch.zeros(4, 13, 2 * 320, dtype=torch.bfloat16)[..., :320]
+    else:
+        q, k, v = _short_views(*case)
+    got = short_layout_error(q, k, v, heads)
+    assert got is None if why is None else why in got

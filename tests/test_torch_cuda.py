@@ -66,9 +66,18 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         flash_attention(x, wide[..., 4:84].unflatten(-1, (2, 40)), x)
     with pytest.raises(ValueError, match="stride 0"):  # a broadcast batch
         flash_attention(x, x[:1].expand(2, 64, 2, 40), x)
+    wide = torch.zeros(2, 64, 1, 512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stride 0"):  # also at d = 512, read through TMA
+        flash_attention(wide, wide[:1].expand(2, 64, 1, 512), wide)
     p = torch.zeros(4, 13, 48, device=cuda)
     with pytest.raises(TypeError):
         short_attention_packed(p, p, p, 4)
+    p = p.bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):  # D = 12
+        short_attention_packed(p, p, p, 4)
+    qkv = torch.zeros(4, 13, 3 * 48 + 8, device=cuda, dtype=torch.bfloat16)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        short_attention_packed(*qkv[..., :144].chunk(3, dim=-1), 2)
 
 
 @pytest.mark.cuda
@@ -81,13 +90,17 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     (1, 257, 257, 80), (3, 64, 64, 80),
     (3, 81, 81, 160), (2, 200, 300, 160),  # d = 160: 64-key tiles, a 2-stage ring
     (1, 5, 3, 512),
+    # d = 512 (the wide kernel: 64 query rows, 64-key tiles): sq and sk
+    # ragged against both, sk below one tile, many tiles
+    (1, 100, 130, 512), (1, 70, 33, 512), (1, 64, 64, 512), (1, 129, 700, 512),
+    (1, 40, 100, 264),  # d = 264: slabs 5-7 of Q, K and V lie wholly past d
 ])
 def test_cuda_flash_matches_plain(cuda, fused, sq, sk, d):
     """``fused`` projections share one product: 3 = q|k|v (self-attention),
     2 = k|v beside q (ReferenceOnly, cross-attention), 1 = none (VAE). Head
     dims 40, 64, 80 and 160 run the wgmma kernel's four instances (192-row
     query blocks at d = 40, 128 above; 128-key tiles, 64 at d = 160), 48 and
-    72 pad inside an instance, 512 runs the mma.sync kernel; sq and sk cover
+    72 pad inside an instance, 264 and 512 run the wide kernel; sq and sk cover
     tiles cut short, below one tile and over several laps of the K/V ring."""
     g = torch.Generator(device=cuda).manual_seed(0)
     heads = 2
@@ -107,7 +120,7 @@ def test_cuda_flash_matches_plain(cuda, fused, sq, sk, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk,d", [(1000, 300, 40), (1000, 77, 40), (700, 300, 80),
-                                     (400, 130, 160)])
+                                     (400, 130, 160), (300, 200, 512)])
 def test_cuda_flash_blocks_walk_many_items(cuda, sq, sk, d):
     """6 x 8 (b, h) pairs of several query tiles each: more work items than
     the card has SMs, so each persistent block takes several items in turn,
@@ -128,7 +141,8 @@ def _views(cuda, sq, sk, d, heads=2, batch=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk,d", [(100, 300, 40), (70, 129, 80), (33, 200, 512),
-                                     (200, 1100, 40), (40, 77, 64), (81, 162, 160)])
+                                     (200, 1100, 40), (40, 77, 64), (81, 162, 160),
+                                     (130, 70, 512), (65, 20, 512)])
 def test_cuda_flash_stats_match_plain(cuda, sq, sk, d):
     """The kernel's (m, l) outputs: m in log2 units to 1e-2 absolute (bf16
     logits), l to 1e-2 relative."""
@@ -142,7 +156,8 @@ def test_cuda_flash_stats_match_plain(cuda, sq, sk, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sk,d,part", [(1100, 40, 512), (600, 512, 256), (300, 80, 4096),
-                                       (700, 160, 100), (1000, 64, 300)])
+                                       (700, 160, 100), (1000, 64, 300),
+                                       (2600, 512, 1296)])  # the split route's VAE parts
 def test_cuda_parts_match_plain(cuda, sk, d, part):
     """Every part but the first two of each case ends inside a KV tile."""
     q, k, v = _views(cuda, 77, sk, d)
@@ -180,6 +195,38 @@ def test_cuda_short_matches_plain(cuda, kv_len):
     q, k, v = qkv.chunk(3, dim=-1)
     got = short_attention_packed(q, k, v, 8, kv_len=kv_len)
     assert_close_scaled(got, short_attention_plain(q, k, v, 8, kv_len=kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d,kv_len", [
+    (37, 1, 40, None), (37, 13, 40, 10), (37, 16, 80, None), (37, 17, 80, 5),
+    (37, 33, 160, None), (37, 64, 40, 64), (37, 64, 160, 50), (37, 13, 160, 1),
+])
+def test_cuda_short_edge_cases(cuda, n, t, d, kv_len):
+    """T across the 16/32/64 paddings, masked keys, the paths' head dims,
+    and N = 37 pixel rows: no multiple of the blocks' work units, so the last
+    lap of the persistent blocks is partial."""
+    g = torch.Generator(device=cuda).manual_seed(t * d)
+    qkv = torch.randn(n, t, 3 * 8 * d, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    got = short_attention_packed(q, k, v, 8, kv_len=kv_len)
+    assert_close_scaled(got, short_attention_plain(q, k, v, 8, kv_len=kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("separate", [False, True])
+def test_cuda_short_at_the_l0_site(cuda, separate):
+    """The L0 temporal site (N 31104, T 13, C 320, 8 heads) on the fused
+    projection's views, and on three separate contiguous tensors (ld = C)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(6 * 72 * 72, 13, 3 * 320, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    if separate:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    before = short_attention_packed.launches
+    got = short_attention_packed(q, k, v, 8)
+    assert short_attention_packed.launches == before + 1
+    assert_close_scaled(got, short_attention_plain(q, k, v, 8))
 
 
 def _ulp(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
