@@ -9,10 +9,13 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 1. build: compile the port's four CUDA sources from ``musev_torch/csrc``
    (all nvcc at once, with ``-Xptxas -v``) and print the card's name and
    power limit, the registers, spills and any wgmma serialisation note of
-   each flash and short-attention instance, and the HGMMA and TMA-load
-   (UTMALDG) instructions in the flash library's SASS; fails if a flash
-   kernel has none of either (where ``cuobjdump`` is missing it says the
-   check was not made);
+   each flash, streaming and short-attention instance, the HGMMA and
+   TMA-load (UTMALDG, and its multicast form) instructions in the two flash
+   libraries' SASS, and the streaming kernel's plan per head dim (cluster
+   size, clusters the card holds against its SMs); fails if a
+   flash kernel has no HGMMA or UTMALDG, or the streaming kernel no
+   multicast load (where ``cuobjdump`` is missing it says the check was not
+   made);
 2. kernels: at the paths' shapes (576^2, 24 frames, 12-frame windows
    overlapping by 4, one vision-condition frame, CFG: 78 frame rows, 8
    heads), on q/k/v laid out as the paths' projections lay them out, hold
@@ -24,7 +27,12 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    kernel at the temporal sites; the pivots (``pivot_rows`` without and
    with the GroupNorm apply, ``unpivot_rows``) at the temporal sites of the
    window batch and of the pose path, bit for bit (the GroupNorm apply
-   within its rounding bound);
+   within its rounding bound). Each row has the CUDA-event time of the
+   wrapper's call (``ms``) and the kernel's own device time per call
+   (``device_ms``: torch.profiler's durations of the kernel, matched by
+   name, over the timed calls; "not measured" unless the profiler recorded
+   every launch), and both times of the library call (``library_ms``,
+   ``library_device_ms``: every kernel the call launched);
 3. path ``musev``: ``build_models("musev")`` at full width with random bf16
    weights, then ``MusevPipeline.text2video`` at 576x576, 24 frames, with the
    T2I first frame, at the default 10 video + 30 T2I steps; the kernels'
@@ -128,6 +136,13 @@ V2V_ARGS = dict(
 VIDEO_SHAPE = (1, 25, 576, 576, 3)  # the JAX pipeline's: condition frame + 24
 KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention",
            "pivot_rows", "pivot_rows_gn", "unpivot_rows")
+# the CUDA functions each wrapper launches, as the profiler names them
+FLASH_FUNCS = ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel")
+DEVICE_FUNCS = dict(flash_attention=FLASH_FUNCS, flash_attention_parts=FLASH_FUNCS,
+                    flash_stream=("flash_stream_kernel",), short_attention=("short_attn_kernel",),
+                    pivot_rows=("relayout_kernel",), pivot_rows_gn=("relayout_kernel",),
+                    unpivot_rows=("relayout_kernel",))
+STREAM_HEAD_DIMS = (40, 64, 80, 160)  # one per instance
 # Kernel against plain version, both scaled to what is compared: the kernels
 # round P and the output to bf16 (8-bit mantissa, relative rounding error up
 # to 2^-9 ~ 2e-3 per element), the plain versions keep float32 throughout.
@@ -175,7 +190,8 @@ def flash_inputs(torch, gen, proj: str, b: int, h: int, sq: int, sk: int, d: int
 
 
 def cuda_ms(torch, fn, warmup: int = 2, iters: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` in ms."""
+    """Median CUDA-event time of ``fn`` in ms: the wrapper's whole call,
+    its host work (allocation, checks, the launch) included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -188,6 +204,62 @@ def cuda_ms(torch, fn, warmup: int = 2, iters: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, funcs=None, per_call: int = 0, iters: int = 5, tries: int = 3):
+    """Device time per call of ``fn`` in ms from torch.profiler: the summed
+    durations of the CUDA functions named in ``funcs`` (of every kernel
+    where None) over ``iters`` calls (after one unprofiled call), over
+    ``iters``; and the launches recorded in each try. A try counts only if
+    the profiler recorded ``per_call`` launches a call (where given, else a
+    whole number a call); else the function is profiled again, and after
+    ``tries`` tries the time is None (not measured), the last try's table
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                and (funcs is None or any(f in e.key for f in funcs))]
+        n = sum(e.count for e in hits)
+        seen.append(n)
+        whole = n == iters * per_call if per_call else n > 0 and n % iters == 0
+        if whole:
+            return sum(e.self_device_time_total for e in hits) / iters / 1e3, seen
+    print(f"device time not measured: {seen} launches recorded over {iters} calls of "
+          f"{funcs or 'the library call'} (expected "
+          f"{iters * per_call if per_call else f'a multiple of {iters}'}); the last try:\n"
+          f"{prof.key_averages().table(row_limit=8)}")
+    return None, seen
+
+
+def timed(torch, name: str, fn, per_call: int = 1) -> dict:
+    """``ms`` (CUDA events around the call: the wrapper's host work
+    included) and ``device_ms`` (the kernel alone, ``per_call`` launches a
+    call) of one wrapper's call, with ``device_records``, the launches the
+    profiler recorded over 5 calls in each try."""
+    dev, seen = device_ms(torch, fn, DEVICE_FUNCS[name], per_call)
+    return dict(ms=cuda_ms(torch, fn), device_ms=dev, device_records=seen)
+
+
+def library_timed(torch, fn) -> dict:
+    """``library_ms`` and ``library_device_ms`` (every kernel it launches)
+    of one PyTorch library call, or None for both where there is none."""
+    if fn is None:
+        return dict(library_ms=None, library_device_ms=None)
+    dev, seen = device_ms(torch, fn)
+    return dict(library_ms=cuda_ms(torch, fn), library_device_ms=dev,
+                library_device_records=seen)
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -248,8 +320,9 @@ def ptxas_report(text: str) -> dict:
 
 
 def sass_counts(lib: Path) -> dict:
-    """HGMMA and TMA-load (UTMALDG) instructions per kernel in the SASS of
-    a built library, or None where the toolkit has no cuobjdump."""
+    """HGMMA, TMA-load (UTMALDG) and multicast TMA-load instructions per
+    flash kernel in the SASS of a built library, or None where the toolkit
+    has no cuobjdump."""
     import re
     import shutil
 
@@ -262,24 +335,27 @@ def sass_counts(lib: Path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            base = re.search(r"(flash_fwd_\w+?_kernel)", m.group(1))
+            base = re.search(r"(flash_\w+?_kernel)", m.group(1))
             args = re.findall(r"Li(\d+)E", m.group(1))
             name = f"{base.group(1)}<{','.join(args)}>" if base else None
             if name:
-                counts[name] = dict(HGMMA=0, UTMALDG=0)
+                counts[name] = dict(HGMMA=0, UTMALDG=0, UTMALDG_MULTICAST=0)
         elif name:
             for op in ("HGMMA", "UTMALDG"):
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+            counts[name]["UTMALDG_MULTICAST"] += bool(re.search(r"\bUTMALDG\S*MULTICAST", line))
     return counts
 
 
-def phase_build():
+def phase_build(torch):
     """Builds every source (all nvcc at once, with ``-Xptxas -v``); prints
-    the card, each flash and short-attention instance's registers and
-    spills and ptxas's warnings and notes from that build of the loaded
-    libraries, and the HGMMA and UTMALDG counts of the flash library's
-    SASS, and fails if a flash kernel lacks either."""
+    the card, each flash, streaming and short-attention instance's
+    registers and spills and ptxas's warnings and notes from that build of
+    the loaded libraries, the HGMMA and UTMALDG counts of both flash
+    libraries' SASS, and the streaming kernel's plans; fails if a flash
+    kernel lacks HGMMA or UTMALDG or the streaming kernel multicast."""
     from musev_torch.ops.kernels import _build
+    from musev_torch.ops.kernels.flash_stream import plan
 
     t0 = time.time()
     outputs = _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
@@ -289,7 +365,7 @@ def phase_build():
     ).stdout.strip().splitlines()[0]
     print(card)
     regs = {}
-    for source in ("flash_attention", "short_attention"):
+    for source in ("flash_attention", "flash_stream", "short_attention"):
         ptxas_out = outputs.get(source)
         if ptxas_out is None:
             print(f"ptxas report not made: {source} was built before this run")
@@ -300,16 +376,31 @@ def phase_build():
                 print(f"ptxas {source}: {line.strip()[:200]}")
     for name, r in regs.items():
         print(f"ptxas {name}: {r}")
-    sass = sass_counts(_build.library_path("flash_attention"))
-    if sass is None:
-        print("SASS check not made: the toolkit has no cuobjdump")
-    else:
-        for name, n in sass.items():
-            print(f"SASS {name}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG")
-        if not sass or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0 for n in sass.values()):
-            fail(f"a flash kernel lacks HGMMA or UTMALDG instructions: {sass}")
+    sass = {}
+    for source in ("flash_attention", "flash_stream"):
+        counts = sass_counts(_build.library_path(source))
+        if counts is None:
+            print("SASS check not made: the toolkit has no cuobjdump")
+            sass = None
+            break
+        for name, n in counts.items():
+            print(f"SASS {name}: {n['HGMMA']} HGMMA, {n['UTMALDG']} UTMALDG "
+                  f"({n['UTMALDG_MULTICAST']} multicast)")
+        if not counts or any(n["HGMMA"] == 0 or n["UTMALDG"] == 0 for n in counts.values()):
+            fail(f"a {source} kernel lacks HGMMA or UTMALDG instructions: {counts}")
+        if source == "flash_stream" and any(n["UTMALDG_MULTICAST"] == 0
+                                            for n in counts.values()):
+            fail(f"a flash_stream kernel has no multicast TMA load: {counts}")
+        sass.update(counts)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for d in STREAM_HEAD_DIMS:
+        p = plans[d] = plan(d)
+        print(f"flash_stream d={d}: cluster of {p['cluster_size']} CTAs x {p['rows_per_cta']} "
+              f"rows; {p['active_clusters']} active clusters x {p['cluster_size']} = "
+              f"{p['active_clusters'] * p['cluster_size']} of {sms} SMs")
     print(f"phase build: {time.time() - t0:.1f} s")
-    return card, dict(ptxas=regs, sass=sass)
+    return card, dict(ptxas=regs, sass=sass, stream_plans=plans, sms=sms)
 
 
 def phase_kernels(torch):
@@ -345,7 +436,7 @@ def phase_kernels(torch):
 
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         plain_ms = cuda_ms(torch, plain_all, warmup=1, iters=3)
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        lib = library_timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bms, by = bound_ms(4.0 * b * h * sq * sk * d, 2.0 * b * h * d * (2 * sq + 2 * sk))
         exp_ms = floors[site] = b * h * sq * sk / PEAK_EXP2 * 1e3  # one exp2 per logit
         part = split_part(sk, d)
@@ -357,15 +448,16 @@ def phase_kernels(torch):
             runs.append(("flash_stream", lambda: flash_stream(q, k, v)))
         for name, fn in runs:
             errs = compare(f"{name} {site} ({proj})", fn()[:chunk], want)
-            ms = cuda_ms(torch, fn)
+            t = timed(torch, name, fn, -(-sk // part) if name == "flash_attention_parts" else 1)
             extra = dict(part=part, n_parts=-(-sk // part)) if name == "flash_attention_parts" \
                 else {}
             rows[name].append(dict(site=site, projection=proj, shape=[b, h, sq, sk, d], **errs,
-                                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   **t, plain_ms=plain_ms, **lib,
                                    bound_ms=bms, bound_by=by, **extra))
-            print(f"{name} {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}), "
-                  f"exp2 floor {exp_ms:.3f} ms")
+            print(f"{name} {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: {t['ms']:.3f} ms, "
+                  f"device {fmt_ms(t['device_ms'])}, plain {plain_ms:.3f} ms, sdpa "
+                  f"{lib['library_ms']:.3f} ms, device {fmt_ms(lib['library_device_ms'])}, "
+                  f"bound {bms:.3f} ms ({by}), exp2 floor {exp_ms:.3f} ms")
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
 
@@ -376,15 +468,17 @@ def phase_kernels(torch):
         want = short_attention_plain(q, k, v, heads)
         errs = compare(f"short_attention {site}", out, want)
         qt, kt, vt = (x.unflatten(-1, (heads, -1)).transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(torch, lambda: short_attention_packed(q, k, v, heads))
+        tm = timed(torch, "short_attention", lambda: short_attention_packed(q, k, v, heads))
         plain_ms = cuda_ms(torch, lambda: short_attention_plain(q, k, v, heads))
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        lib = library_timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bms, by = bound_ms(4.0 * n * t * t * c, 2.0 * 4 * n * t * c)
         rows["short_attention"].append(dict(site=site, shape=[n, t, c, heads], **errs,
-                                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            **tm, plain_ms=plain_ms, **lib,
                                             bound_ms=bms, bound_by=by))
-        print(f"short_attention {site} (N,T,C,heads)={(n, t, c, heads)}: {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        print(f"short_attention {site} (N,T,C,heads)={(n, t, c, heads)}: {tm['ms']:.3f} ms, "
+              f"device {fmt_ms(tm['device_ms'])}, plain {plain_ms:.3f} ms, sdpa "
+              f"{lib['library_ms']:.3f} ms, device {fmt_ms(lib['library_device_ms'])}, "
+              f"bound {bms:.3f} ms ({by})")
         del qkv, q, k, v, qt, kt, vt, out, want
     pivot_sites(torch, gen, rows)
     print(f"phase kernels: {time.time() - t0:.1f} s")
@@ -440,16 +534,16 @@ def pivot_sites(torch, gen, rows: dict) -> None:
             print(f"{name} {site}: max abs err {max_err:.2e} ({rule}: {'ok' if ok else 'FAILED'})")
             if not ok:
                 fail(f"{name} disagrees with its plain version at {site}")
-            ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
-            lib_ms = None if lib is None else cuda_ms(torch, lib)
+            tm, plain_ms = timed(torch, name, fn), cuda_ms(torch, plain)
+            lt = library_timed(torch, lib)
             bms, by = bound_ms(0.0, nb)
-            rows[name].append(dict(site=site, shape=[b, t, hw, c], max_abs_err=max_err, ms=ms,
-                                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                                   bound_by=by))
-            lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-            print(f"{name} {site} (b,T,HW,C)={(b, t, hw, c)}: {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, transpose().contiguous() {lib_txt}, bound {bms:.3f} ms "
-                  f"({by})")
+            rows[name].append(dict(site=site, shape=[b, t, hw, c], max_abs_err=max_err, **tm,
+                                   plain_ms=plain_ms, **lt, bound_ms=bms, bound_by=by))
+            lib_txt = "none" if lib is None else (
+                f"{lt['library_ms']:.3f} ms, device {fmt_ms(lt['library_device_ms'])}")
+            print(f"{name} {site} (b,T,HW,C)={(b, t, hw, c)}: {tm['ms']:.3f} ms, device "
+                  f"{fmt_ms(tm['device_ms'])}, plain {plain_ms:.3f} ms, "
+                  f"transpose().contiguous() {lib_txt}, bound {bms:.3f} ms ({by})")
         del x, y, scale, shift
 
 
@@ -661,7 +755,7 @@ def main() -> None:
     import numpy as np
 
     t0 = time.time()
-    card, build = phase_build()
+    card, build = phase_build(torch)
     rows, exp2_floors = phase_kernels(torch)
     need = ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows")
     paths = {}
@@ -701,9 +795,10 @@ def main() -> None:
         return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
                     launches=path_counts[name], launches_by_path=by_path[name],
                     max_abs_err=max(r["max_abs_err"] for r in sites),
-                    ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                    ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+                    bound_ms=head["bound_ms"],
                     bound_by=head["bound_by"], library_ms=head["library_ms"],
-                    site=head["site"], sites=sites)
+                    library_device_ms=head["library_device_ms"], site=head["site"], sites=sites)
 
     flash_py = "musev_tpu/ops/pallas/flash_attention.py"
     pivot_py = "scripts/bench_fused_transpose.py"
@@ -712,7 +807,7 @@ def main() -> None:
         entry("flash_attention_parts", "musev_torch/csrc/flash_attention.cu", f"{flash_py}:77",
               LONGKV_HEAD, variant="with_stats=True, merged by _merge_parts (:589)"),
         entry("flash_stream", "musev_torch/csrc/flash_stream.cu", f"{flash_py}:165",
-              LONGKV_HEAD),
+              LONGKV_HEAD, plan=build["stream_plans"]),
         entry("short_attention", "musev_torch/csrc/short_attention.cu",
               "musev_tpu/ops/pallas/short_attention.py:39"),
         entry("pivot_rows", "musev_torch/csrc/pivot.cu", f"{pivot_py}:70", POSE_HEAD,

@@ -22,7 +22,8 @@
 // is read once per block, so the bytes per logit fall as a block holds more
 // query rows.
 //
-// Design for head dims up to 160 (flash_fwd_wgmma_kernel, Config below):
+// Design for head dims up to 160 (flash_fwd_wgmma_kernel; its per-instance
+// plans are Config in flash_common.cuh):
 //   * Warp specialisation. Warpgroup 0 is the producer: it gives up
 //     registers (setmaxnreg 24) and one thread issues TMA loads, each work
 //     item's Q into one of NQ buffers and K and V tiles into a ring of NS
@@ -84,456 +85,11 @@
 // fp32 to (B, Sq, H) arrays, so partial results over KV parts merge exactly.
 // A row whose keys are all masked keeps m = -inf and l = 0.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTensorMapError = -2;
-constexpr int kNoEncoder = -3;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---- Hopper primitives: mbarriers, TMA, wgmma, named barriers -------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed. A wait
-// that outlasts about ten seconds traps, so a broken pipeline fails the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// One TMA box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of an operand stored with the SW-byte
-// swizzle (layout B32, B64 or B128): start address, leading and stride byte
-// offsets, all in 16-byte units.
-template <int SW>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes: the compiler may
-// not move their other uses across this point.
-template <int R>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void pin(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma m64nNk16, bf16 x bf16 -> fp32. `ss`: A and B from shared memory, both
-// K-major; `rs`: A from registers (4 x bf16x2 per thread), B MN-major. The
-// accumulator of thread (warp w, lane 4g + t) holds d[4j + e] at row
-// 16w + g + 8 * (e >> 1), column 8j + 2t + (e & 1). One specialisation per
-// width an instance uses, each with its register list written out.
-template <int N>
-__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d);
-template <int N>
-__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-
-template <> __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<40>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %25, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19"
-      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<160>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
 // ---- Warp-specialised wgmma/TMA kernel, head dims up to 160 -----------------
-
-// One instance of the kernel: DP the head dim padded to 16 (the depth of
-// Q K^T), DN the head dim padded to 8 (the width of P V and of O), BK keys
-// per tile, NS stages of the K/V ring, NQ Q buffers (later work items' Q
-// load while this one runs), SW-byte swizzled rows, NC consumer warpgroups
-// of 64 query rows each.
-template <int DP_, int DN_, int BK_, int NS_, int NQ_, int SW_, int NC_>
-struct Config {
-  static constexpr int DP = DP_, DN = DN_, BK = BK_, NS = NS_, NQ = NQ_, SW = SW_, NC = NC_;
-  static constexpr int kBlockQ = 64 * NC;
-  static constexpr int kThreads = 128 * (NC + 1);
-  // Shared memory: NQ Q buffers, NS K tiles, NS V tiles, each as slabs of
-  // SW-byte rows (SW / 2 columns), then the mbarriers. Every slab starts on
-  // a multiple of 8 * SW bytes, the period of the SW-byte swizzle.
-  static constexpr int kSlabCols = SW / 2;
-  static constexpr int kSlabs = (DP + kSlabCols - 1) / kSlabCols;
-  static constexpr int kQSlab = kBlockQ * SW;
-  static constexpr int kKVSlab = BK * SW;
-  static constexpr int kQBytes = kSlabs * kQSlab;    // one Q buffer
-  static constexpr int kKVBytes = kSlabs * kKVSlab;  // one K or V tile
-  static constexpr int kKOff = NQ * kQBytes;
-  static constexpr int kVOff = kKOff + NS * kKVBytes;
-  static constexpr int kBarOff = kVOff + NS * kKVBytes;
-  static constexpr int kBars = 2 * NQ + 4 * NS;  // full and empty per buffer
-  static constexpr int kBytes = kBarOff + kBars * 8 + 1024;  // + alignment slack
-  // Registers per thread after setmaxnreg: the producer keeps 24, the
-  // consumers share the rest of the 64K register file (128 x 24 + 256 x 240
-  // or 128 x 24 + 384 x 160 = 64512).
-  static constexpr int kConsumerRegs = NC == 2 ? 240 : 160;
-  static_assert(DP % 16 == 0 && DN % 8 == 0 && DN <= DP && BK % 16 == 0 && BK <= 256, "tile");
-  static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle");
-  static_assert(kQSlab % (8 * SW) == 0 && kKVSlab % (8 * SW) == 0, "slab alignment");
-  static_assert(NS >= 2, "the K/V ring needs two stages: V of tile j is freed after K of j + 1");
-  static_assert(NQ >= 1 && (NC == 2 || NC == 3) && kBytes <= 232448, "block resources");
-};
-
-// Online softmax of one S tile in place (s becomes p = exp2(x - m), x =
-// s * c, c = scale * log2 e), for the rows g and g + 8 of this thread. The
-// row max is taken over the raw logits, negated when c < 0, so that
-// max x = |c| max(sign * s) and p = exp2(fma(s, c, -m)) is one FFMA and one
-// MUFU.EX2 per logit. Keys at or past sk (kRagged: the last tile) get p = 0.
-// Updates the running max m (log2 units), the thread's partial row sums l,
-// and alpha, the rescale the accumulated O owes.
-template <int N, bool kNeg, bool kRagged>
-__device__ __forceinline__ void online_softmax(float* s, float c, int key0, int sk, int t,
-                                               float& m_lo, float& m_hi, float& l_lo,
-                                               float& l_hi, float& alpha_lo, float& alpha_hi) {
-  float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float y = kNeg ? -s[i] : s[i];
-    if (kRagged && key0 + 8 * (i / 4) + 2 * t + (i & 1) >= sk) y = -INFINITY;
-    if (i & 2)
-      mx_hi = fmaxf(mx_hi, y);
-    else
-      mx_lo = fmaxf(mx_lo, y);
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-  }
-  const float cabs = fabsf(c);
-  const float mn_lo = fmaxf(m_lo, mx_lo == -INFINITY ? -INFINITY : cabs * mx_lo);
-  const float mn_hi = fmaxf(m_hi, mx_hi == -INFINITY ? -INFINITY : cabs * mx_hi);
-  // a row with no unmasked key so far keeps max -inf: subtract 0 instead, so
-  // no inf - inf NaN appears
-  const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-  const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-  alpha_lo = ex2(m_lo - base_lo);
-  alpha_hi = ex2(m_hi - base_hi);
-  m_lo = mn_lo;
-  m_hi = mn_hi;
-  float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float p = ex2(fmaf(s[i], c, (i & 2) ? -base_hi : -base_lo));
-    if (kRagged && key0 + 8 * (i / 4) + 2 * t + (i & 1) >= sk) p = 0.f;
-    s[i] = p;
-    if (i & 2)
-      sum_hi += p;
-    else
-      sum_lo += p;
-  }
-  l_lo = l_lo * alpha_lo + sum_lo;
-  l_hi = l_hi * alpha_hi + sum_hi;
-}
-
-// online_softmax for tile j of BK keys: the sign of c and whether the tile
-// is the ragged last one pick the instance (a branch around the softmax,
-// never around a wgmma).
-template <int N, int BK>
-__device__ __forceinline__ void softmax_tile(float* s, float c, int j, int sk, int t,
-                                             float& m_lo, float& m_hi, float& l_lo,
-                                             float& l_hi, float& alpha_lo, float& alpha_hi) {
-  const int key0 = j * BK;
-  if (c >= 0.f) {
-    if (key0 + BK > sk)
-      online_softmax<N, false, true>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
-    else
-      online_softmax<N, false, false>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo,
-                                      alpha_hi);
-  } else {
-    online_softmax<N, true, true>(s, c, key0, sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
-  }
-}
-
-// P as the A operand of P V: n8 blocks 2kk and 2kk + 1 of S are k-step kk.
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t* p, const float* s) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void rescale(float* o, float alpha_lo, float alpha_hi) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    o[i] *= alpha_lo;
-    o[i + 1] *= alpha_lo;
-    o[i + 2] *= alpha_hi;
-    o[i + 3] *= alpha_hi;
-  }
-}
-
-// Epilogue of one work item for this thread's rows row_lo and row_lo + 8:
-// the row sums l over the row's four threads, O normalised into the
-// contiguous (B, Sq, H, D) output (NB n8 blocks from column col0, those
-// below D), and, with `stats`, the rows' (m, l).
-template <int NB>
-__device__ __forceinline__ void write_rows(const float* o_acc, float m_lo, float m_hi, float l_lo,
-                                           float l_hi, int row_lo, int t, int b, int h, int H,
-                                           int Sq, int D, int col0, bool stats,
-                                           __nv_bfloat16* o, float* m_out, float* l_out) {
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-  const int row_hi = row_lo + 8;
-  if (stats && t == 0) {
-    const long long st = (long long)b * Sq * H + h;
-    if (row_lo < Sq) {
-      m_out[st + (long long)row_lo * H] = m_lo;
-      l_out[st + (long long)row_lo * H] = l_lo;
-    }
-    if (row_hi < Sq) {
-      m_out[st + (long long)row_hi * H] = m_hi;
-      l_out[st + (long long)row_hi * H] = l_hi;
-    }
-  }
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D + col0;
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    const int col = 8 * i + 2 * t;
-    if (col0 + 8 * i < D) {
-      if (row_lo < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
-            pack_bf16(o_acc[4 * i] * inv_lo, o_acc[4 * i + 1] * inv_lo);
-      if (row_hi < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
-            pack_bf16(o_acc[4 * i + 2] * inv_hi, o_acc[4 * i + 3] * inv_hi);
-    }
-  }
-}
 
 template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
@@ -751,53 +307,6 @@ __global__ void __launch_bounds__(C::kThreads, 1)
                          Sq, D, 0, m_out != nullptr, o, m_out, l_out);
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiledFn>(nullptr);
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// Tensor map of a (B, S, H, D) bf16 view with element strides s = (batch,
-// seq, head) as the 4-D tensor (D, S, H, B), boxes of SW / 2 columns x `rows`
-// rows, SW-byte swizzle, out-of-bounds elements read as zero.
-template <int SW>
-int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-               const long long* s, int rows) {
-  EncodeTiledFn encode = encoder();
-  if (encode == nullptr) return kNoEncoder;
-  const long long extent[3] = {S, H, B};
-  const long long elem[3] = {s[1], s[2], s[0]};
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)H, (cuuint64_t)B};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    const long long bytes = elem[i] * (long long)sizeof(__nv_bfloat16);
-    // a dim of extent 1 is never stepped: any legal stride will do
-    strides[i] = (extent[i] <= 1 && (bytes <= 0 || bytes % 16)) ? 16 : (cuuint64_t)bytes;
-  }
-  cuuint32_t box[4] = {(cuuint32_t)(SW / 2), (cuuint32_t)rows, 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                 : CU_TENSOR_MAP_SWIZZLE_32B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError;
 }
 
 template <class C>

@@ -1,297 +1,443 @@
-// Long-KV flash attention for Hopper (sm_90a): K/V streamed through a
-// two-stage cp.async pipeline in shared memory past a 128-row query chunk.
+// Long-KV streaming flash attention for Hopper (sm_90a): a thread-block
+// cluster holds a large query chunk resident and streams K/V past it once,
+// each K/V tile loaded from device memory once per cluster by TMA multicast.
 // bf16 in/out, fp32 logits, softmax state and accumulator.
 //
 // Replaces the Pallas TPU kernel _stream_kernel
 // (musev_tpu/ops/pallas/flash_attention.py:165, driven by _flash_stream
-// :255-294). Its idea is kept: one program owns a large resident q chunk and
-// streams the KV extent past it exactly once, copies double-buffered against
-// compute, with every q sub-block's online-softmax state (m, l, acc) carried in
-// registers. Here one block owns 128 query rows over 8 warps (16 rows each);
-// each K/V tile of BK rows is copied once into shared memory for all 8 warps
-// with cp.async, and the copy of tile j + 1 is in flight while the warps run
-// tile j's mma (cp.async.wait_group 1). K and V are read once per 128 query
-// rows, half as often as by the flash kernel's 64-row blocks. The TPU devices
-// of _flash_stream are dropped: the d -> 128 lane padding (:259-262) and the
-// (bh, n_sub, sub_kv, 128) reshape for DMA slicing (:268-269). K/V are read
-// through the (B, S, H, D) strides of the caller's views, and d = 40 is padded
-// to 48 in shared memory only (cp.async zero-fills the pad columns).
+// :255-294). Its idea is one program that owns a large resident q chunk
+// (bq_inner rows) and streams the whole KV extent past it once, copies
+// double-buffered against compute, every q sub-block's online-softmax state
+// carried on chip. On Hopper one CTA holds at most 192 query rows (three
+// 64-row consumer warpgroups), so the chunk becomes a cluster of CN CTAs on
+// neighbouring SMs: together they own CN x 64 * NC consecutive query rows of
+// one (b, h) (384 at d = 40 with CN = 2; 576, the TPU kernel's bq_inner, with
+// CN = 3), and each K/V tile reaches all CN shared memories from one TMA
+// multicast.
 //
-// Bound. At the L0 ReferenceNet fuse site of the musev_referencenet preset
-// (B 78, H 8, sq 5184, sk 10368, d 40) the work is
-// 4 * 78 * 8 * 5184 * 10368 * 40 = 5.37 TFLOP against 0.33 GB of q/k/v/o:
-// 5.4 ms at 989 TFLOP/s bf16 versus 0.1 ms at 3.35 TB/s, so the tensor cores
-// bound it. The design feeds them from shared memory with ldmatrix (K as the
-// col-major B operand of S = Q K^T, V transposed as the B operand of P V) and
-// mma.sync m16n8k16; Q's fragments are loaded once and stay in registers for
-// the whole stream; S stays in registers and is re-packed as the A operand of
-// P V, so logits never touch shared or device memory. wgmma/TMA and warp
-// specialisation are left for later work.
+// Bound. At the L0 ReferenceNet fuse site (B 78, H 8, sq 5184, sk 10368,
+// d 40) the tensor cores need 5.4 ms and one exp2 per logit 8.6 ms (3.9 T
+// exp2/s; flash_attention.cu's note). The third limit, the one this design
+// is about, is the K/V stream from L2 into shared memory: a CTA of 192 rows
+// reads each (b, h)'s K/V (1.66 MB) 27 times, 28 GB at that site, against
+// 14 GB for a cluster of 384 rows and 9.3 GB for one of 576.
 //
-// Ragged sq and sk tails are masked; a row whose keys are all masked yields 0.
+// Design (flash_stream_kernel):
+//   * Each CTA is flash_attention.cu's flash_fwd_wgmma_kernel: a producer
+//     warpgroup (setmaxnreg 24), NC consumer warpgroups of 64 rows, Q K^T as
+//     wgmma m64nBKk16 from shared memory, P V with P from registers, a ring
+//     of NS K/V stages; the plan per head dim is that kernel's Config.
+//   * Work items are per cluster (%clusterid): a (b, h) and a chunk of
+//     CN x 64 * NC query rows; CTA r of the cluster takes the chunk's r-th
+//     64 * NC rows. Persistent clusters, as many as
+//     cudaOccupancyMaxActiveClusters allows, walk the items, the chunks of
+//     one (b, h) adjacent.
+//   * K/V loads. Every CTA's issuing thread waits until every CTA of the
+//     cluster has released the slot (below) and sets its own full barrier to
+//     expect the whole tile's bytes; the tile is issued once in the cluster
+//     with cp.async.bulk.tensor...multicast::cluster to all CN CTAs, by CTA
+//     kv mod CN, kv the tile's place in the ring's sequence (each CTA a
+//     share of every tile instead ran no faster: chip_stream_ablation.py).
+//     A multicast may land before the receiving producer's expect_tx: the
+//     phase stays open until that producer arrives.
+//   * Releasing a slot. A slot is refilled only when every CTA of the
+//     cluster has released it. The consumers release it on their own CTA's
+//     empty barrier, exactly as in the flash kernel; a forwarding thread
+//     (warp 1 of the producer warpgroup) waits on that barrier and passes
+//     each release on to the cluster-wide empty barrier of every CTA (mapa,
+//     mbarrier.arrive.shared::cluster), which counts CN arrivals a use; the
+//     issuing thread waits only on its own cluster-wide barrier. So the
+//     consumers keep the flash kernel's code and registers, and no consumer
+//     arrives across SMs. Q is per CTA (not shared) and keeps local
+//     barriers.
+//   * Idle CTAs. A CTA whose rows all lie past sq (L1 sq = 1296, L3 sq = 81,
+//     short tails) still sets up its barriers, expects every tile and
+//     releases every slot once its copy has landed (a multicast into the
+//     shared memory of an exited CTA is undefined); its consumers skip the
+//     products by a branch around the whole item, never among the wgmma.
+//     Every CTA ends on barrier.cluster arrive/wait, so none exits while a
+//     peer may still multicast into it or arrive on its barriers.
+//   * As in the flash kernel: no branch among the wgmma (the ragged key
+//     tail is masked in the softmax), descriptors formed at the point of use.
+//
+// The cluster size CN is fixed per head-dim instance (kClusterSize, from
+// chip_stream_ablation.py's sweep, PERF.md §6). A row whose keys are all
+// masked (sk = 0) yields 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 8;
-constexpr int kBQ = 16 * kWarps;  // query rows per block
-constexpr int kThreads = 32 * kWarps;
+constexpr int kNoClusterFits = -4;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// This CTA's rank in its cluster, the cluster's index in the grid and the
+// number of clusters.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return (int)r;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Every thread of every CTA of the cluster; release/acquire (the defaults).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint32_t b0,
-                                               uint32_t b1) {
+// One TMA box into the same shared-memory offset of every CTA in `mask`,
+// completing on the barrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, uint16_t mask, int c0, int c1,
+                                                   int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// Start the copy of rows [row0, row0 + ROWS) of one (b, h) slice into a
-// (ROWS, DP) shared tile with row stride LDS; rows >= n and cols >= d are zeros.
-template <int DP, int LDS, int ROWS>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                           long long s_stride, int row0, int n, int d,
-                                           int tid) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < n && c < d;
-    const __nv_bfloat16* src = valid ? base + (long long)gr * s_stride + c : base;
-    cp_async16(dst + r * LDS + c, src, valid);
+// Arrive on the barrier at `bar`'s offset in CTA `cta` of the cluster, with
+// the default semantics (release at CTA scope). A .release.cluster arrive
+// compiles to MEMBAR.ALL.GPU, which per slot release doubled the kernel's
+// time (PERF.md §6); the order it would add is not needed: the slot's
+// readers have finished (wgmma.wait_group, then the local empty barrier)
+// before this arrive is issued, and the only write that follows is the TMA.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Shared memory: the flash kernel's layout (Config) and, after its barriers,
+// the cluster-wide empty barriers of the K and V slots.
+template <class C>
+constexpr int kStreamBytes = C::kBytes + 2 * C::NS * 8;
+
+template <class C, int CN>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_stream_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        __nv_bfloat16* __restrict__ o, int H, int Sq, int Sk, int D,
+                        int chunks, int items, float scale_log2) {
+  constexpr int DP = C::DP, DN = C::DN, BK = C::BK, NS = C::NS, NQ = C::NQ, SW = C::SW;
+  constexpr int NC = C::NC;
+  constexpr int kSlabs = C::kSlabs;
+  constexpr int kSlabCols = C::kSlabCols;
+  constexpr int NSR = BK / 2;     // S accumulator floats per thread (m64 x BK)
+  constexpr int NOR = DN / 2;     // O accumulator floats per thread (m64 x DN)
+  constexpr int NP = BK / 4;      // P fragment registers per thread
+  constexpr int kTurn = 128 * 2;  // threads at a turn barrier
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty_q = full_q + NQ;
+  uint64_t* full_k = empty_q + NQ;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty_k = full_v + NS;
+  uint64_t* empty_v = empty_k + NS;
+  uint64_t* cluster_empty_k = empty_v + NS;  // released by every CTA of the cluster
+  uint64_t* cluster_empty_v = cluster_empty_k + NS;
+
+  // the cluster's registers are read where they are used: a value live
+  // across setmaxnreg, or kept by the 24-register producer, is spilled
+  const int nt = (Sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NQ; ++i) {
+      mbar_init(&full_q[i], 1);
+      mbar_init(&empty_q[i], 128 * NC);
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 128 * NC);
+      mbar_init(&empty_v[s], 128 * NC);
+      mbar_init(&cluster_empty_k[s], CN);
+      mbar_init(&cluster_empty_v[s], CN);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  cluster_sync();  // every peer's barriers exist before any multicast or remote arrive
 
-template <int DP, int BK>
-__global__ void __launch_bounds__(kThreads)
-    flash_stream_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                        int H, int Sq, int Sk, int D, long long q_sb, long long q_ss,
-                        long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
-  constexpr int LDS = DP + 8;  // row stride: conflict-free ldmatrix rows
-  constexpr int KD = DP / 16;  // k16 steps over the head dim
-  constexpr int NO = DP / 8;   // output n8 tiles per warp
-  constexpr int NS = BK / 8;   // logits n8 tiles per warp
-  static_assert(DP % 16 == 0 && BK % 16 == 0 && NO % 2 == 0 && NS % 2 == 0, "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LDS;     // two stages of (BK, LDS)
-  __nv_bfloat16* Vs = Ks + 2 * BK * LDS;  // two stages of (BK, LDS)
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within an 8-row group
-  const int t = lane & 3;   // column pair within a k16 step
-  const int lm = lane >> 3; // the 8x8 matrix whose row this lane addresses
-  const int lr = lane & 7;  // that row
-  const int r0 = warp * 16;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  const int n_tiles = (Sk + BK - 1) / BK;
-  stage_tile<DP, LDS, kBQ>(Qs, qb, q_ss, q0, Sq, D, tid);
-  stage_tile<DP, LDS, BK>(Ks, kb, k_ss, 0, Sk, D, tid);
-  stage_tile<DP, LDS, BK>(Vs, vb, v_ss, 0, Sk, D, tid);
-  cp_async_commit();
-
-  uint32_t qf[KD][4];
-  float acc[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, rows g and g + 8
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's partial row sums
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
-      stage_tile<DP, LDS, BK>(Ks + (stage ^ 1) * BK * LDS, kb, k_ss, (it + 1) * BK, Sk, D, tid);
-      stage_tile<DP, LDS, BK>(Vs + (stage ^ 1) * BK * LDS, vb, v_ss, (it + 1) * BK, Sk, D, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the copy just started has landed
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(qf[kk], Qs + (r0 + (lm & 1) * 8 + lr) * LDS + kk * 16 + (lm >> 1) * 8);
-    }
-    const __nv_bfloat16* Kt = Ks + stage * BK * LDS;
-    const __nv_bfloat16* Vt = Vs + stage * BK * LDS;
-    const int kv0 = it * BK;
-
-    // S = Q K^T for this warp's 16 rows and BK keys.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        uint32_t bk[4];  // b0, b1 of key tiles j and j + 1
-        ldsm_x4(bk, Kt + ((j + (lm >> 1)) * 8 + lr) * LDS + kk * 16 + (lm & 1) * 8);
-        mma_bf16_16816(s[j], qf[kk], bk[0], bk[1]);
-        mma_bf16_16816(s[j + 1], qf[kk], bk[2], bk[3]);
+  if (wg == 0) {
+    // ---- producer warpgroup, 24 registers: the cluster's registers are
+    // read at their uses ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      // ---- issuer: this CTA's Q, and every K/V tile whose turn it is ----
+      // Every slab of a tile is issued by CTA `r` of the cluster.
+      auto issue = [&](unsigned char* dst, const CUtensorMap* map, uint64_t* full, uint32_t r,
+                       int row, int h, int b) {
+        mbar_expect_tx(full, C::kKVBytes);
+        for (int s = 0; s < kSlabs; ++s)
+          if (r == cluster_rank())
+            tma_load_multicast(dst + s * C::kKVSlab, map, full, (1u << CN) - 1, kSlabCols * s,
+                               row, h, b);
+      };
+      int kv = 0;
+      for (int item = cluster_index(), it = 0; item < items; item += cluster_count(), ++it) {
+        const int bh = item / chunks;
+        const int q0 = ((item - bh * chunks) * CN + cluster_rank()) * C::kBlockQ;
+        const int b = bh / H;
+        const int h = bh - b * H;
+        const int qb = it % NQ;
+        mbar_wait(&empty_q[qb], ((it / NQ) & 1) ^ 1);  // the first use passes at once
+        if (q0 < Sq) {
+          mbar_expect_tx(&full_q[qb], C::kQBytes);
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(smem + qb * C::kQBytes + s * C::kQSlab, &tm_q, &full_q[qb], kSlabCols * s,
+                     q0, h, b);
+        } else {
+          mbar_arrive(&full_q[qb]);  // no rows here: nothing to load
+        }
+        for (int j = 0; j < nt; ++j, ++kv) {
+          const int st = kv % NS;
+          const uint32_t ph = (kv / NS) & 1;
+          // every CTA has released the slot's last tile (the first use passes at once)
+          mbar_wait(&cluster_empty_k[st], ph ^ 1);
+          issue(smem + C::kKOff + st * C::kKVBytes, &tm_k, &full_k[st], kv % CN, j * BK, h, b);
+          mbar_wait(&cluster_empty_v[st], ph ^ 1);
+          issue(smem + C::kVOff + st * C::kKVBytes, &tm_v, &full_v[st], kv % CN, j * BK, h, b);
+        }
+      }
+    } else if (threadIdx.x == 32) {
+      // ---- forwarder: passes each release of a K/V slot by this CTA's
+      // consumers on to every CTA's cluster-wide empty barrier, in the
+      // ring's sequence (tile kv is released in phase kv / NS of `empty`) ----
+      const int n_kv = nt * ((items - cluster_index() + cluster_count() - 1) / cluster_count());
+      for (int kv = 0; kv < n_kv; ++kv) {
+        const int st = kv % NS;
+        const uint32_t ph = (kv / NS) & 1;
+        mbar_wait(&empty_k[st], ph);
+        for (uint32_t r = 0; r < CN; ++r) mbar_arrive_remote(&cluster_empty_k[st], r);
+        mbar_wait(&empty_v[st], ph);
+        for (uint32_t r = 0; r < CN; ++r) mbar_arrive_remote(&cluster_empty_v[st], r);
       }
     }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    const int my_turn = 1 + c;
+    const int next_turn = 1 + (c + 1) % NC;
+    const uint32_t k_base = smem_addr(smem + C::kKOff);
+    const uint32_t v_base = smem_addr(smem + C::kVOff);
 
-    // Scale into log2 units, mask the ragged KV tail, online softmax.
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int col = kv0 + j * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = col + (e & 1) < Sk ? s[j][e] * scale_log2 : -INFINITY;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    // A row with no unmasked key so far keeps max -inf: subtract 0 instead,
-    // so exp2(-inf) = 0 and no inf - inf NaN appears.
-    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-    const float alpha_lo = exp2f(m_lo - base_lo);
-    const float alpha_hi = exp2f(m_hi - base_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - base_lo);
-      s[j][1] = exp2f(s[j][1] - base_lo);
-      s[j][2] = exp2f(s[j][2] - base_hi);
-      s[j][3] = exp2f(s[j][3] - base_hi);
-      sum_lo += s[j][0] + s[j][1];
-      sum_hi += s[j][2] + s[j][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      acc[i][0] *= alpha_lo;
-      acc[i][1] *= alpha_lo;
-      acc[i][2] *= alpha_hi;
-      acc[i][3] *= alpha_hi;
-    }
+    float s_acc[NSR];
+    float o_acc[NOR];
+    uint32_t p_frag[NP];
+    float m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi;
+    uint32_t q_base = 0;
+    int kv0 = 0;
 
-    // O += P V: P is re-packed from S's accumulators as the A operand.
+    auto issue_qk = [&](int j) {
+      const uint32_t kt = k_base + ((kv0 + j) % NS) * C::kKVBytes;
+      pin<NSR>(s_acc);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int s = 0; s < DP / 16; ++s) {
+        const uint32_t slab = 16 * s / kSlabCols, col_bytes = 16 * s % kSlabCols * 2;
+        wgmma_ss<BK>(s_acc, smem_desc<SW>(q_base + slab * C::kQSlab + col_bytes, 16, 8 * SW),
+                     smem_desc<SW>(kt + slab * C::kKVSlab + col_bytes, 16, 8 * SW), s > 0);
+      }
+      wg_commit();
+      pin<NSR>(s_acc);
+    };
+    auto issue_pv = [&](int j) {
+      const uint32_t vt = v_base + ((kv0 + j) % NS) * C::kKVBytes;
+      pin<NOR>(o_acc);
+      pin<NP>(p_frag);
+      wg_fence();
 #pragma unroll
-      for (int i = 0; i < NO; i += 2) {
-        uint32_t bv[4];  // b0, b1 of output tiles i and i + 1
-        ldsm_x4_trans(bv, Vt + (kk * 16 + (lm & 1) * 8 + lr) * LDS + i * 8 + (lm >> 1) * 8);
-        mma_bf16_16816(acc[i], a, bv[0], bv[1]);
-        mma_bf16_16816(acc[i + 1], a, bv[2], bv[3]);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DN>(o_acc, p_frag + 4 * kk, smem_desc<SW>(vt + kk * 16 * SW, C::kKVSlab, 8 * SW));
+      wg_commit();
+      pin<NOR>(o_acc);
+    };
+    auto rescale_o = [&]() { rescale<NOR>(o_acc, alpha_lo, alpha_hi); };
+    auto softmax = [&](int j) {
+      softmax_tile<NSR, BK>(s_acc, scale_log2, j, Sk, t, m_lo, m_hi, l_lo, l_hi, alpha_lo,
+                            alpha_hi);
+    };
+    auto pack = [&]() { pack_p<BK>(p_frag, s_acc); };
+    auto wait_k = [&](int j) { mbar_wait(&full_k[(kv0 + j) % NS], ((kv0 + j) / NS) & 1); };
+    auto wait_v = [&](int j) { mbar_wait(&full_v[(kv0 + j) % NS], ((kv0 + j) / NS) & 1); };
+    auto release_k = [&](int j) { mbar_arrive(&empty_k[(kv0 + j) % NS]); };
+    auto release_v = [&](int j) { mbar_arrive(&empty_v[(kv0 + j) % NS]); };
+
+    for (int item = cluster_index(), it = 0; item < items;
+         item += cluster_count(), ++it, kv0 += nt) {
+      const int bh = item / chunks;
+      const int q0 = ((item - bh * chunks) * CN + cluster_rank()) * C::kBlockQ;
+      const int b = bh / H;
+      const int h = bh - b * H;
+      const int qb = it % NQ;
+      q_base = smem_addr(smem + qb * C::kQBytes) + c * 64 * SW;
+#pragma unroll
+      for (int i = 0; i < NOR; ++i) o_acc[i] = 0.f;
+      m_lo = m_hi = -INFINITY;
+      l_lo = l_hi = 0.f;
+      alpha_lo = alpha_hi = 1.f;
+
+      mbar_wait(&full_q[qb], (it / NQ) & 1);
+      if (nt > 0 && q0 < Sq) {
+        if (c == NC - 1) bar_arrive(1, kTurn);
+        wait_k(0);
+        bar_sync(my_turn, kTurn);
+        issue_qk(0);
+        bar_arrive(next_turn, kTurn);
+        wg_wait<0>();
+        pin<NSR>(s_acc);
+        release_k(0);
+        if (nt == 1) mbar_arrive(&empty_q[qb]);
+        softmax(0);
+        pack();
+        for (int j = 1; j < nt; ++j) {
+          wait_k(j);
+          bar_sync(my_turn, kTurn);
+          issue_qk(j);
+          rescale_o();
+          wait_v(j - 1);
+          issue_pv(j - 1);
+          bar_arrive(next_turn, kTurn);
+          wg_wait<1>();  // Q K^T of tile j done; P V of tile j - 1 may run on
+          pin<NSR>(s_acc);
+          release_k(j);
+          if (j == nt - 1) mbar_arrive(&empty_q[qb]);
+          softmax(j);
+          wg_wait<0>();
+          pin<NOR>(o_acc);
+          pin<NP>(p_frag);
+          release_v(j - 1);
+          pack();
+        }
+        rescale_o();
+        wait_v(nt - 1);
+        bar_sync(my_turn, kTurn);
+        issue_pv(nt - 1);
+        if (c != NC - 1) bar_arrive(next_turn, kTurn);
+        wg_wait<0>();
+        pin<NOR>(o_acc);
+        release_v(nt - 1);
+        write_rows<DN / 8>(o_acc, m_lo, m_hi, l_lo, l_hi, q0 + 64 * c + 16 * warp + g, t, b, h,
+                           H, Sq, D, 0, false, o, nullptr, nullptr);
+      } else {
+        // no keys, or no rows in this CTA: release every slot once its copy
+        // has landed, so that the peers' ring keeps turning
+        for (int j = 0; j < nt; ++j) {
+          wait_k(j);
+          release_k(j);
+          wait_v(j);
+          release_v(j);
+        }
+        mbar_arrive(&empty_q[qb]);
+        if (nt == 0)  // sk = 0: every row is 0 (rows past sq are not written)
+          write_rows<DN / 8>(o_acc, m_lo, m_hi, l_lo, l_hi, q0 + 64 * c + 16 * warp + g, t, b,
+                             h, H, Sq, D, 0, false, o, nullptr, nullptr);
       }
     }
-    __syncthreads();  // this stage is refilled by the next iteration's copy
   }
-  cp_async_wait<0>();  // no copy outlives the block (sk = 0 leaves the first)
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-  const int row_lo = q0 + r0 + g;
-  const int row_hi = row_lo + 8;
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (col < D) {
-      if (row_lo < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_lo * o_ss + col) =
-            pack_bf16(acc[i][0] * inv_lo, acc[i][1] * inv_lo);
-      if (row_hi < Sq)
-        *reinterpret_cast<uint32_t*>(ob + row_hi * o_ss + col) =
-            pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
-    }
-  }
+  cluster_sync();  // no CTA exits while a peer may still write into it
 }
 
-template <int DP, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-                   int Sk, int D, const long long* qs, const long long* ks, const long long* vs,
-                   float scale, cudaStream_t stream) {
-  constexpr int LDS = DP + 8;
-  const size_t smem = (size_t)(kBQ + 4 * BK) * LDS * sizeof(__nv_bfloat16);
-  auto kernel = flash_stream_kernel<DP, BK>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v), reinterpret_cast<__nv_bfloat16*>(o), H, Sq,
-      Sk, D, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale * kLog2e);
+// Launches instance C in clusters of CN CTAs; `info`, when given,
+// receives the plan: cluster size, query rows per CTA and the clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters). A null q launches
+// nothing.
+template <class C, int CN>
+int launch_stream(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+                  int Sk, int D, const long long* qs, const long long* ks, const long long* vs,
+                  float scale, int* info, cudaStream_t stream) {
+  static_assert(CN >= 1 && CN <= 8, "a portable cluster holds 1 to 8 CTAs");
+  auto kernel = flash_stream_kernel<C, CN>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStreamBytes<C>);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CN;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CN);
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = kStreamBytes<C>;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int active = 0;  // clusters the card holds at once (one device per process)
+  if (active == 0) {
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (n <= 0) return kNoClusterFits;
+    active = n;
+  }
+  if (info != nullptr) {
+    info[0] = CN;
+    info[1] = C::kBlockQ;
+    info[2] = active;
+  }
+  if (q == nullptr) return 0;
+
+  CUtensorMap tq, tk, tv;
+  if (Sk == 0) k = v = q, ks = vs = qs;  // K/V maps never read: describe q
+  int err = tensor_map<C::SW>(&tq, q, B, Sq, H, D, qs, C::kBlockQ);
+  if (err == 0) err = tensor_map<C::SW>(&tk, k, B, Sk, H, D, ks, C::BK);
+  if (err == 0) err = tensor_map<C::SW>(&tv, v, B, Sk, H, D, vs, C::BK);
+  if (err != 0) return err;
+  const int rows = CN * C::kBlockQ;
+  const int chunks = (Sq + rows - 1) / rows;
+  const long long items = (long long)chunks * B * H;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int clusters = (int)(items < active ? items : active);
+  cfg.gridDim = dim3(clusters * CN);
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, reinterpret_cast<__nv_bfloat16*>(o), H, Sq,
+                         Sk, D, chunks, (int)items, scale * kLog2e);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The cluster size of each head-dim instance, from chip_stream_ablation.py's
+// sweep (PERF.md §6): 2 up to d = 80, the only size whose clusters cover all
+// 132 SMs (3 and 4 leave 15 and 12 idle); 3 at d = 160, whose one site that
+// streams (L2, sq 324) fits one chunk of 384 rows where 2 needs two.
+constexpr int kClusterSize[4] = {2, 2, 2, 3};
+
+// Config<DP, DN, BK, NS, NQ, SW, NC> per head-dim instance, as in
+// flash_attention.cu.
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq, int Sk,
+             int D, const long long* qs, const long long* ks, const long long* vs, float scale,
+             int* info, cudaStream_t st) {
+  if (D <= 0 || D % 8 != 0 || D > 160) return -1;
+  if (D <= 40)
+    return launch_stream<Config<48, 40, 128, 4, 2, 64, 3>, kClusterSize[0]>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, info, st);
+  if (D <= 64)
+    return launch_stream<Config<64, 64, 128, 3, 2, 128, 2>, kClusterSize[1]>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, info, st);
+  if (D <= 80)
+    return launch_stream<Config<80, 80, 128, 3, 2, 32, 2>, kClusterSize[2]>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, info, st);
+  return launch_stream<Config<160, 160, 64, 2, 2, 128, 2>, kClusterSize[3]>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, info, st);
 }
 
 }  // namespace
@@ -299,7 +445,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" {
 
 // q/k/v strides are (batch, seq, head) in elements; the head dim is contiguous.
-// Returns 0 on success, a cudaError_t, or -1 for an unsupported head dim.
+// Returns 0 on success, a cudaError_t, -1 for an unsupported head dim, -2 if
+// TMA cannot address q, k or v, -3 if the driver has no tensor-map encoder,
+// -4 if no cluster of the instance's size fits on the card.
 int musev_flash_stream_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                             int Sq, int Sk, int D, long long q_sb, long long q_ss,
                             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -308,16 +456,22 @@ int musev_flash_stream_bf16(const void* q, const void* k, const void* v, void* o
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh};
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % 8 != 0) return -1;
-  if (D <= 48) return launch<48, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 80) return launch<80, 64>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  if (D <= 160) return launch<160, 32>(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, st);
-  return -1;
+  return dispatch(q, k, v, o, B, H, Sq, Sk, D, qs, ks, vs, scale, nullptr,
+                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The plan of head dim D into out[3]: cluster size, query rows per CTA,
+// clusters the card holds at once. Same return codes.
+int musev_flash_stream_plan(int D, int* out) {
+  return dispatch(nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, D, nullptr, nullptr, nullptr,
+                  1.f, out, nullptr);
 }
 
 const char* musev_cuda_error_string(int err) {
   if (err == -1) return "unsupported head dim";
+  if (err == kTensorMapError) return "cuTensorMapEncodeTiled refused a q/k/v layout";
+  if (err == kNoEncoder) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err == kNoClusterFits) return "no thread-block cluster of the plan fits on the card";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -2,9 +2,10 @@
 
 Each source is one shared library with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` at first use into ``musev_torch/_build`` (listed in
-``.gitignore``). The library name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded. Nothing is
-built or loaded at import time.
+``.gitignore``). The library name carries a hash of the source, of the
+headers under ``csrc`` that it includes, and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. Nothing is built or
+loaded at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,10 +39,21 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and every header it includes with quotes, recursively."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for header in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', text, re.M):
+            _sources(path.parent / header.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for text in _sources(CSRC / f"{name}.cu", {}).values():
+        h.update(hashlib.sha256(text).digest())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

@@ -79,16 +79,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError("q, k and v must have one dtype")
 
 
-def layout_error(x: torch.Tensor, tma: bool = False) -> Optional[str]:
-    """Why the attention kernels cannot read the (B, S, H, D) view ``x`` as
-    it is, or None. They need a contiguous head dim, batch/sequence/head
-    strides that are multiples of 8 elements and a 16-byte aligned base;
-    through TMA tensor maps (``tma``) no dim of extent above 1 may be a
-    broadcast (stride 0), which TMA cannot step."""
+def layout_error(x: torch.Tensor) -> Optional[str]:
+    """Why the flash kernels cannot read the (B, S, H, D) view ``x`` as it
+    is, or None. They read it through a TMA tensor map, which needs a
+    contiguous head dim, batch/sequence/head strides that are multiples of
+    8 elements, a 16-byte aligned base, and no dim of extent above 1 that is
+    a broadcast (stride 0), which TMA cannot step."""
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]):
         return (f"strides {x.stride()} need a contiguous head dim and "
                 "8-element-aligned outer strides")
-    if tma and any(n > 1 and s == 0 for n, s in zip(x.shape[:3], x.stride()[:3])):
+    if any(n > 1 and s == 0 for n, s in zip(x.shape[:3], x.stride()[:3])):
         return (f"strides {x.stride()} broadcast a dim (stride 0), which TMA cannot "
                 "address: pass it .contiguous()")
     if x.data_ptr() % 16:
@@ -97,9 +97,8 @@ def layout_error(x: torch.Tensor, tma: bool = False) -> Optional[str]:
 
 
 def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        max_head_dim: int, tma: bool = False) -> None:
-    """What the (B, S, H, D) attention kernels take on CUDA; raises otherwise.
-    ``tma``: the kernel reads q, k and v through TMA tensor maps."""
+                        max_head_dim: int) -> None:
+    """What the (B, S, H, D) flash kernels take on CUDA; raises otherwise."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
@@ -108,7 +107,7 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     if d % 8 or d > max_head_dim:
         raise ValueError(f"{name} kernel: head dim {d} unsupported")
     for label, x in (("q", q), ("k", k), ("v", v)):
-        why = layout_error(x, tma)
+        why = layout_error(x)
         if why is not None:
             raise ValueError(f"{name} kernel: {label} {why}")
 
@@ -121,7 +120,7 @@ def strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float],
             with_stats: bool):
     """One kernel launch; returns (o, m, l), m and l None without stats."""
-    check_kernel_inputs("flash_attention", q, k, v, MAX_HEAD_DIM, tma=True)
+    check_kernel_inputs("flash_attention", q, k, v, MAX_HEAD_DIM)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5

@@ -1,10 +1,12 @@
 """Long-KV streaming flash attention: the CUDA kernel and its plain version.
 
 The kernel (``csrc/flash_stream.cu``) replaces the Pallas TPU kernel
-``_stream_kernel`` (``musev_tpu/ops/pallas/flash_attention.py:165``): K/V
-stream once past a 128-row query chunk through a double-buffered cp.async
-pipeline. As in the JAX package, no dispatcher routes to it; it is an
-alternative long-KV design held against ``flash_attention`` on the card.
+``_stream_kernel`` (``musev_tpu/ops/pallas/flash_attention.py:165``): a
+thread-block cluster of CN CTAs holds CN x 64 * NC consecutive query rows of
+one (b, h) and streams K/V past them once, each K/V tile loaded once per
+cluster by TMA multicast into every CTA's shared memory. As in the JAX
+package, no dispatcher routes to it; it is an alternative long-KV design held
+against ``flash_attention`` on the card.
 
 ``flash_stream`` takes CPU tensors to ``flash_attention_plain`` and CUDA
 tensors to the kernel; on CUDA it launches or raises, never falls back.
@@ -28,8 +30,8 @@ def flash_stream(
 ) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors; returns contiguous (B, Sq, H, D).
 
-    CUDA inputs follow ``flash_attention``'s rules with head dims up to 160
-    (the UNet's 40, 80 and 160).
+    CUDA inputs follow ``flash_attention``'s rules (read through TMA: no
+    broadcast views) with head dims up to 160 (the UNet's 40, 80 and 160).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -56,6 +58,15 @@ def flash_stream(
 flash_stream.launches = 0
 
 
+def plan(d: int) -> dict:
+    """The plan the kernel takes at head dim ``d``: cluster size, query rows
+    per CTA and the clusters the current card holds at once."""
+    lib = _lib()
+    info = (ctypes.c_int * 3)()
+    _build.check(lib, lib.musev_flash_stream_plan(d, info), "flash_stream plan")
+    return dict(cluster_size=info[0], rows_per_cta=info[1], active_clusters=info[2])
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_stream")
     fn = lib.musev_flash_stream_bf16
@@ -64,4 +75,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.musev_flash_stream_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        lib.musev_flash_stream_plan.restype = ctypes.c_int
     return lib

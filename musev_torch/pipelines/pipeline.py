@@ -86,6 +86,19 @@ _NOT_PORTED = {
     "need_hist_match": False,
     "prompt_only_use_image_prompt": False,
     "guidance_rescale": 0.0,
+    "ip_adapter_face_scale": 1.0,
+    "controlnet_conditioning_scale": 1.0,
+    "video_overlap": 1,
+    "redraw_strength": 0.75,
+}
+# options the JAX pipelines read only inside another option's branch
+# (musev_tpu/pipelines/pipeline.py:599-603, :848-852, :878-889, :909-917):
+# any value is a no-op while that option keeps its no-op value
+_READ_ONLY_UNDER = {
+    "ip_adapter_face_scale": "face_emb",
+    "controlnet_conditioning_scale": "control_images",
+    "video_overlap": "record_mid_video",
+    "redraw_strength": "redraw_condition_image",
 }
 # the same for video2video
 _NOT_PORTED_V2V = {
@@ -97,13 +110,20 @@ _NOT_PORTED_V2V = {
 }
 
 
+def _is_noop(value, default) -> bool:
+    return value is default or (default is not None and value == default)
+
+
 def _reject_unported(fn: str, unported: dict, table: dict) -> None:
-    """Raise for an unknown option or a not-ported one away from its no-op value."""
+    """Raise for an unknown option or a not-ported one away from its no-op
+    value, unless the option is read only under another that is off."""
     for name, value in unported.items():
         if name not in table:
             raise TypeError(f"{fn}() got an unexpected keyword argument {name!r}")
-        default = table[name]
-        if not (value is default or (default is not None and value == default)):
+        gate = _READ_ONLY_UNDER.get(name)
+        if gate in table and _is_noop(unported.get(gate, table[gate]), table[gate]):
+            continue
+        if not _is_noop(value, table[name]):
             raise NotImplementedError(f"{fn}({name}=...) is not ported to musev_torch yet")
 
 

@@ -204,16 +204,31 @@ def test_kernel_library_name_tracks_source():
     assert a.name.startswith("libflash_attention-") and len({a, b, c}) == 3
 
 
+def test_kernel_library_name_tracks_included_headers(tmp_path, monkeypatch):
+    """An edit of flash_common.cuh renames both flash libraries (so a stale
+    one is never loaded) and leaves a source that does not include it alone."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("flash_attention", "flash_stream", "pivot")
+    before = {n: _build.library_path(n) for n in names}
+    with open(tmp_path / "flash_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["flash_stream"] != before["flash_stream"]
+    assert after["pivot"] == before["pivot"]
+
+
 @pytest.mark.parametrize("d", [8, 40, 48, 64, 72, 80, 96, 160, 168, 512])
 def test_flash_broadcast_refused_only_on_the_tma_kernel(d):
-    """``flash_attention`` reads q/k/v through TMA at every head dim (the
-    wgmma kernels up to 160 and the wide one above), and TMA cannot step a
-    broadcast (stride-0) batch, so every head dim refuses one; the cp.async
-    kernel (``flash_stream``, tma=False) takes it as it is."""
+    """``flash_attention`` and ``flash_stream`` read q/k/v through TMA at
+    every head dim, and TMA cannot step a broadcast (stride-0) batch, so
+    every head dim refuses one (the last kernel that took one, K2 on
+    cp.async, became a TMA kernel)."""
     k = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16).expand(3, 16, 2, d)
-    assert layout_error(k.contiguous(), tma=True) is None
-    assert "stride 0" in layout_error(k, tma=True)
-    assert layout_error(k, tma=False) is None
+    assert layout_error(k.contiguous()) is None
+    assert "stride 0" in layout_error(k)
 
 
 def _projection_views(proj, b, h, sq, sk, d):
@@ -241,19 +256,18 @@ def test_tma_layout_accepts_every_path_layout(proj, b, h, sq, sk, d):
     """Every projection layout of the flash sites, at small sizes, is one
     that TMA tensor maps can describe as it is (no copies)."""
     for x in _projection_views(proj, b, h, sq, sk, d):
-        assert layout_error(x, tma=True) is None
+        assert layout_error(x) is None
 
 
 def test_tma_layout_refuses_what_tma_cannot_address():
     """A broadcast (stride-0) dim of extent above 1 is refused; one of
     extent 1 is never stepped, so its stride 0 is taken."""
     q, k, v = _projection_views("qkv", 2, 2, 16, 16, 40)
-    assert "stride 0" in layout_error(q[:1].expand(2, 16, 2, 40), tma=True)  # batch
-    assert "stride 0" in layout_error(q[:, :1].expand(2, 16, 2, 40), tma=True)  # sequence
-    assert layout_error(q[:1].expand(2, 16, 2, 40), tma=False) is None
+    assert "stride 0" in layout_error(q[:1].expand(2, 16, 2, 40))  # batch
+    assert "stride 0" in layout_error(q[:, :1].expand(2, 16, 2, 40))  # sequence
     one = torch.zeros(16, 2, 40, dtype=torch.bfloat16).as_strided((1, 16, 2, 40),
                                                                   (0, 80, 40, 1))
-    assert layout_error(one, tma=True) is None
+    assert layout_error(one) is None
 
 
 @pytest.mark.parametrize("bad,why", [
@@ -261,15 +275,14 @@ def test_tma_layout_refuses_what_tma_cannot_address():
 ])
 def test_kernel_layout_refuses_misaligned_views(bad, why):
     """A base 8 bytes off 16, 84-element (168-byte) rows or a transposed head
-    dim is refused by every kernel, through TMA or not."""
+    dim is refused by every flash kernel."""
     if bad == "base":
         x = torch.zeros(2, 16, 88, dtype=torch.bfloat16)[..., 4:84].unflatten(-1, (2, 40))
     elif bad == "rows":
         x = torch.zeros(2, 16, 84, dtype=torch.bfloat16)[..., :80].unflatten(-1, (2, 40))
     else:
         x = torch.zeros(2, 16, 40, 40, dtype=torch.bfloat16).transpose(2, 3)
-    for tma in (True, False):
-        assert why in layout_error(x, tma)
+    assert why in layout_error(x)
 
 
 

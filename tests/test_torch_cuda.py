@@ -25,6 +25,7 @@ from musev_torch.ops.kernels.flash_attention import (
     flash_attention_stats_plain,
 )
 from musev_torch.ops.kernels.flash_stream import flash_stream
+from musev_torch.ops.kernels.flash_stream import plan as stream_plan
 from musev_torch.ops.kernels.pivot import (
     pivot_rows,
     pivot_rows_plain,
@@ -178,13 +179,43 @@ def test_cuda_flash_without_keys_yields_zero(cuda, d):
     assert bool(torch.isneginf(m).all()) and torch.equal(l, torch.zeros_like(l))
 
 
+# the cluster's edges at each path head dim: sq not a multiple of the
+# cluster's rows (1296, 81, 5), sq below one CTA's rows (whole CTAs of a
+# cluster without rows), no keys, and a ragged KV tail
+STREAM_EDGES = [(sq, sk, d) for d in (40, 80, 160)
+                for sq, sk in ((1296, 300), (81, 300), (5, 300), (150, 1000), (70, 0),
+                               (81, 10368 + 13))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d", [(100, 1100, 40), (257, 257, 80), (130, 70, 160), (5, 3, 40)])
+@pytest.mark.parametrize("sq,sk,d", [(100, 1100, 40), (257, 257, 80), (130, 70, 160), (5, 3, 40),
+                                     *STREAM_EDGES])
 def test_cuda_flash_stream_matches_plain(cuda, sq, sk, d):
     q, k, v = _views(cuda, sq, sk, d)
-    assert_close_scaled(flash_stream(q, k, v), flash_attention_plain(q, k, v))
+    before = flash_stream.launches
+    got = flash_stream(q, k, v)
+    assert flash_stream.launches - before == 1
+    if sk == 0:  # every key masked: rows of 0
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert_close_scaled(got, flash_attention_plain(q, k, v))
     with pytest.raises(ValueError):
         flash_stream(*(torch.zeros(1, 8, 1, 512, device=cuda, dtype=torch.bfloat16),) * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_cuda_flash_stream_plans_match_plain(cuda, d):
+    """Each head-dim instance's cluster plan, with 6 x 8 (b, h) pairs of a
+    ragged query extent: more cluster work items than the card holds
+    clusters, so each cluster walks several in turn, with CTAs that hold no
+    rows in the last chunk of each (b, h)."""
+    q, k, v = _views(cuda, 1296 + 5, 700 + 13, d, heads=8, batch=6)
+    assert_close_scaled(flash_stream(q, k, v), flash_attention_plain(q, k, v))
+    info = stream_plan(d)
+    assert info["cluster_size"] == (3 if d > 80 else 2)
+    assert info["active_clusters"] * info["cluster_size"] <= (
+        torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 @pytest.mark.cuda
