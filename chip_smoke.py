@@ -38,6 +38,22 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    T2I first frame, at the default 10 video + 30 T2I steps; the kernels'
    launch counts are zeroed just before and read just after; a second run is
    profiled for device time by kernel;
+   then phase ``cli``: the same clip from checkpoint files through the
+   text2video CLI. A ``musev`` model drawn from seed 1 is written to
+   disk (its UNet as ``.safetensors`` by this script's own writer, its VAE
+   and text encoder by ``torch.save``), and the spatial sites of a seed-2
+   UNet as the T2I base; ``musev_torch.cli.text2video.main`` runs a CSV
+   task from them with ``--strict_checkpoints`` at the path's operating
+   point and writes the clip (an mp4 through the native library, else PNG
+   frames through PIL, as the printed line says). Fails
+   unless the weights that ``build_models`` loads from those files are bit
+   for bit the seeds' (temporal and VAE and text from seed 1, spatial from
+   seed 2, bf16), the CLI wrote 25 frames (the condition frame and 24) of
+   576x576 that equal ``MusevPipeline.text2video`` on the loaded models
+   within the path's rerun spread, and the flash, short and pivot kernels
+   launched in the CLI's run and (the wide d = 512 instance too) in the
+   profile of the direct clip, which fails if it holds no launches; prints which optional packages import and whether the native
+   video library builds;
 4. path ``musev_referencenet``: the same for image-to-video from a seeded
    random 576x576 condition image, which is also the ReferenceNet and
    IP-Adapter image, at the default 10 video steps;
@@ -62,11 +78,14 @@ exits non-zero and prints no result. Details go to
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -581,10 +600,214 @@ def phase_path(torch, preset: str, method: str, args: dict, need: tuple):
             fail(f"the {preset} path launched {name} no time")
     profile, again = profile_path(torch, run, args)
     rerun_change = float(np.abs(again.latents - res.latents).max())
+    rerun_frames = int(np.abs(to_uint8(again.videos).astype(np.int16) - to_uint8(res.videos)).max())
     print(f"phase path {preset}: the profiled rerun moves the latents by up to "
-          f"{rerun_change:.3e}")
+          f"{rerun_change:.3e} and the uint8 frames by up to {rerun_frames}")
     return dict(method=method, build_models_s=t_build, clip_s=t_run, peak_gb=peak_gb,
-                launches=launches, rerun_latent_change=rerun_change, profile=profile), models, res
+                launches=launches, rerun_latent_change=rerun_change,
+                rerun_frame_change=rerun_frames, profile=profile), models, res
+
+
+def to_uint8(videos):
+    """The frames the CLIs write: the first video of (B, T, H, W, 3) in [0, 1]."""
+    import numpy as np
+
+    return (videos[0] * 255).astype(np.uint8)
+
+
+SAFETENSORS_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
+
+
+def write_safetensors(path: Path, state_dict: dict) -> None:
+    """The safetensors format, written tensor by tensor: a little-endian u64
+    header size, a JSON header of each tensor's dtype, shape and byte range
+    (padded with spaces to 8 bytes), then the raw bytes in that order; the
+    port reads the format itself, so its proof writes it without the
+    ``safetensors`` package too."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in state_dict.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = dict(dtype=SAFETENSORS_DTYPES[str(t.dtype).split(".")[-1]],
+                            shape=list(t.shape), data_offsets=[offset, offset + nbytes])
+        offset += nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in state_dict.values():  # the standard layout, whatever the memory format
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+
+
+
+
+def importable(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def in_sd_base(key: str) -> bool:
+    """Whether an SD1.5 base holds this ``musev`` UNet key: not the temporal
+    layers, the frame embedding or ``transformer_in``."""
+    return not any(s in key for s in ("temp_", "frame_embedding", "transformer_in"))
+
+
+def phase_cli(torch, rerun_frames: int, need: tuple) -> dict:
+    """The text2video CLI at the path's operating point from checkpoint files
+    written here (see the module docstring); returns its record."""
+    import numpy as np
+
+    from musev_torch.cli import text2video as cli
+    from musev_torch.configs.model_registry import get_model_preset, resolve_negative_prompt
+    from musev_torch.io.video import VideoReader, native_available, native_error
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    packages = {name: importable(name) for name in ("safetensors", "yaml", "PIL", "transformers")}
+    native = native_available()
+    print(f"phase cli: packages {packages}; native video library (make -C native) "
+          f"{'built' if native else 'unavailable: ' + str(native_error())}")
+    writer = "native mp4" if native else "PNG frames through PIL"
+    t2v_args = dict(T2V_ARGS, negative_prompt=resolve_negative_prompt("V2"))
+    with tempfile.TemporaryDirectory(prefix="_cli_phase_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        files = dict(unet_checkpoint=tmp / "unet.safetensors", vae_checkpoint=tmp / "vae.pth",
+                     text_checkpoint=tmp / "text.pth",
+                     sd_base_checkpoint=tmp / "sd_base.safetensors")
+        t0 = time.time()
+        donor = build_models("musev", seed=1)
+        write_safetensors(files["unet_checkpoint"], donor.unet.state_dict())
+        for slot, module in (("vae_checkpoint", donor.vae), ("text_checkpoint", donor.text_encoder)):
+            torch.save({k: v.contiguous().cpu() for k, v in module.state_dict().items()}, files[slot])
+        del donor
+        base = build_models("musev", seed=2).unet.state_dict()
+        write_safetensors(files["sd_base_checkpoint"],
+                          {k: v for k, v in base.items() if in_sd_base(k)})
+        del base
+        torch.cuda.empty_cache()
+        write_s = time.time() - t0
+        gb = {k: round(f.stat().st_size / 1e9, 3) for k, f in files.items()}
+        print(f"phase cli: checkpoints written in {write_s:.1f} s, GB {gb}")
+
+        (tmp / "tasks.csv").write_text(f"name,prompt\ncli,{T2V_ARGS['prompt']}\n")
+        argv = ["--test_data_path", str(tmp / "tasks.csv"), "--output_dir", str(tmp / "out"),
+                "--strict_checkpoints", "--height", str(T2V_ARGS["height"]),
+                "--width", str(T2V_ARGS["width"]),
+                "--time_size", str(T2V_ARGS["video_length"]),
+                "--context_frames", str(T2V_ARGS["context_frames"]),
+                "--context_overlap", str(T2V_ARGS["context_overlap"]),
+                "--num_inference_steps", str(T2V_ARGS["num_inference_steps"]),
+                "--video_num_inference_steps", str(T2V_ARGS["video_num_inference_steps"]),
+                "--seed", str(T2V_ARGS["seed"])]
+        for slot, f in files.items():
+            argv += [f"--{slot}", str(f)]
+        kept, clip_s = {}, []
+        real_write, real_t2v = cli.write_video, MusevPipeline.text2video
+
+        def keep(path, frames, fps):  # the mp4 is lossy: hold the frames as written
+            kept[path] = frames.copy()
+            real_write(path, frames, fps=fps)
+
+        def timed_t2v(self, *a, **k):
+            t = time.time()
+            out = real_t2v(self, *a, **k)
+            torch.cuda.synchronize()
+            clip_s.append(time.time() - t)
+            return out
+
+        cli.write_video, MusevPipeline.text2video = keep, timed_t2v
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        try:
+            t1 = time.time()
+            written = cli.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.time() - t1
+        finally:
+            cli.write_video, MusevPipeline.text2video = real_write, real_t2v
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        if len(written) != 1:
+            fail(f"the CLI wrote {written}, not one clip")
+        if native:
+            with VideoReader(written[0]) as r:
+                mp4 = (r.num_frames, r.height, r.width)
+            frames = kept[written[0]]
+        else:
+            from PIL import Image
+
+            pngs = sorted(Path(written[0]).glob("*.png"))
+            frames = np.stack([np.asarray(Image.open(p)) for p in pngs])
+            mp4 = None
+        print(f"phase cli: CLI {cli_s:.1f} s (clip {clip_s[0]:.2f} s), peak device memory "
+              f"{peak_gb:.1f} GB, wrote {Path(written[0]).name} ({writer}), frames "
+              f"{frames.shape}, mp4 read back (frames, H, W) {mp4}, launches {launches}")
+        want_frames = (VIDEO_SHAPE[1], *VIDEO_SHAPE[2:])
+        if frames.shape != want_frames or (mp4 is not None and mp4 != want_frames[:3]):
+            fail(f"the CLI wrote frames {frames.shape} (mp4 {mp4}), expected {want_frames}")
+        for name in need:
+            if launches[name] <= 0:
+                fail(f"the text2video CLI launched {name} no time")
+
+        t2 = time.time()
+        preset = get_model_preset("musev", **{k: str(f) for k, f in files.items()})
+        models = build_models(preset, strict=True)
+        torch.cuda.synchronize()
+        load_s = time.time() - t2
+    profile, res = profile_path(torch, MusevPipeline(models).text2video, t2v_args)
+    diff = int(np.abs(frames.astype(np.int16) - to_uint8(res.videos)).max())
+    print(f"phase cli: load {load_s:.1f} s; frames against MusevPipeline.text2video on the "
+          f"loaded models: max |diff| {diff} (the path's rerun spread {rerun_frames})")
+    if diff > rerun_frames:
+        fail(f"the CLI's frames differ from the direct call by {diff} > {rerun_frames}")
+    seen = profile.get("port_kernel_launches")
+    if not seen:
+        fail("the profile of the clip on the loaded models recorded no launches, so the "
+             "wide d = 512 instance is unchecked")
+    missed = [k for k in ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "short_attn_kernel",
+                          "relayout_kernel") if seen[k] <= 0]
+    if missed:
+        fail(f"the clip on the loaded models launched {missed} no time: {seen}")
+
+    # bit for bit: temporal sites, VAE and text from seed 1, spatial sites from seed 2
+    loaded = {name: getattr(models, name).state_dict() for name in ("unet", "vae", "text_encoder")}
+    wrong, n_checked = [], {1: 0, 2: 0}
+    for seed in (1, 2):
+        ref = build_models("musev", seed=seed)
+        for name, sd in loaded.items():
+            ref_sd = getattr(ref, name).state_dict()
+            for k, v in sd.items():
+                from_base = name == "unet" and in_sd_base(k)
+                if (seed == 2) != from_base:
+                    continue
+                n_checked[seed] += 1
+                if v.dtype != ref_sd[k].dtype or not torch.equal(v, ref_sd[k]):
+                    wrong.append(f"{name}.{k}")
+        del ref, ref_sd
+    dtype = models.dtype
+    del models, loaded
+    torch.cuda.empty_cache()
+    print(f"phase cli: loaded {dtype} tensors checked bit for bit: {n_checked[1]} against seed "
+          f"1, {n_checked[2]} against seed 2; {len(wrong)} differ"
+          f"{': ' + ', '.join(wrong[:5]) if wrong else ''}")
+    if wrong:
+        fail(f"the loaded weights differ from the seeds' at {len(wrong)} tensors")
+    record = dict(packages=packages, native_video=native, video_writer=writer,
+                  safetensors_writer="chip_smoke.write_safetensors", checkpoint_gb=gb,
+                  write_checkpoints_s=write_s, load_checkpoints_s=load_s, cli_s=cli_s,
+                  clip_s=clip_s[0], peak_gb=peak_gb, launches=launches,
+                  frames=list(frames.shape), max_frame_diff=diff, rerun_frame_change=rerun_frames,
+                  tensors_checked=n_checked, dtype=str(dtype), profile=profile)
+    print("phase cli: " + json.dumps({k: record[k] for k in (
+        "write_checkpoints_s", "load_checkpoints_s", "cli_s", "clip_s", "peak_gb",
+        "video_writer", "safetensors_writer", "max_frame_diff")}))
+    return record
 
 
 def phase_pose_control(torch, models, args: dict, res, rerun_change: float) -> float:
@@ -762,6 +985,7 @@ def main() -> None:
     paths["musev"], models, _ = phase_path(torch, "musev", "text2video", T2V_ARGS, need)
     del models
     torch.cuda.empty_cache()
+    paths["cli"] = phase_cli(torch, paths["musev"]["rerun_frame_change"], need)
     rng = np.random.default_rng(0)
     image = rng.uniform(0, 255, (1, 1, 576, 576, 3)).astype(np.float32)
     paths["musev_referencenet"], models, _ = phase_path(

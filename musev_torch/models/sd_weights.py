@@ -1,6 +1,6 @@
-"""Reference torch key maps and the JAX-param -> torch-layout export.
+"""Reference torch key maps, checkpoint reading and loading into the port's modules.
 
-A copy of the key-map part of ``musev_tpu/models/sd_weights.py`` (the port
+The key-map part is a copy of ``musev_tpu/models/sd_weights.py`` (the port
 imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map``,
 ``clip_text_key_map``, ``referencenet_key_map``, ``clip_vision_key_map``,
 ``image_proj_key_map``, ``controlnet_key_map`` and ``pose_guider_key_map``
@@ -10,14 +10,31 @@ into torch-layout numpy arrays: HWIO -> OIHW for convolutions (HWIO ->
 (O, I, 1, kH, kW) for an InflatedConv3d), (in, out) -> (out, in) for
 linears, (kT, 1, I, O) -> (O, I, kT, 1, 1) for the temporal conv.
 ``ip_adapter_site_paths`` names the attn2 modules in the numbering of an
-``ip_adapter.bin``. Numpy only.
+``ip_adapter.bin``.
+
+Checkpoints: ``load_safetensors`` reads the safetensors format itself (no
+``safetensors`` package needed) through a memory map, and
+``load_torch_checkpoint`` reads ``torch.save`` files. The port's modules
+carry the reference key names, so ``load_into`` is a lookup into
+``module.state_dict()`` that copies each tensor in place, cast to the
+module's dtype on its device: the legacy VAE attention names are aliased
+(``_VAE_LEGACY_ALIASES``), a 2-D conv weight (O, I, kH, kW) is lifted into
+an InflatedConv3d (O, I, 1, kH, kW), and a shape that disagrees raises
+naming the tensor and the preset. ``ip_adapter_unet_state_dict`` and
+``image_proj_state_dict`` take an ``ip_adapter.bin`` apart.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+import json
+import os
+import struct
+import zipfile
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 Path = Tuple
 KeyEntry = Tuple[str, Path, str]  # torch key prefix (no .weight/.bias), path, kind
@@ -370,3 +387,138 @@ def export_state_dict(key_map, params) -> Dict[str, np.ndarray]:
             out[f"{tk}.bias"] = c(np.asarray(node["bias"]))
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# reading checkpoints and loading them into modules
+
+# diffusers' pre-0.14 VAE attention names (``_VAE_LEGACY_ALIASES``,
+# musev_tpu/models/sd_weights.py:393)
+_VAE_LEGACY_ALIASES = {
+    ".query": ".to_q",
+    ".key": ".to_k",
+    ".value": ".to_v",
+    ".proj_attn": ".to_out.0",
+}
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Tensors of a ``.safetensors`` file: a little-endian u64 header size N,
+    N bytes of JSON ``{name: {"dtype", "shape", "data_offsets": [begin,
+    end]}}`` (and an optional ``__metadata__``), then the raw bytes, offsets
+    counted from the end of the header. The file is memory-mapped
+    copy-on-write: each tensor is a view of the map, read from disk when it
+    is copied, so a file of several GB is never held twice."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    size = os.path.getsize(path) - 8 - n
+    data = np.memmap(path, dtype=np.uint8, mode="c", offset=8 + n) if size > 0 else \
+        np.empty(0, np.uint8)  # numpy cannot map zero bytes
+    out = {}
+    for name, info in header.items():
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']!r}")
+        begin, end = info["data_offsets"]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if not 0 <= begin <= end <= data.shape[0] or \
+                end - begin != itemsize * int(np.prod(info["shape"], dtype=np.int64)):
+            raise ValueError(f"{path}: tensor {name!r} has data offsets {info['data_offsets']} "
+                             f"that do not fit its shape {info['shape']} or the file")
+        raw = data[begin:end]
+        if begin % itemsize:  # a writer that did not align its tensors
+            raw = raw.copy()
+        out[name] = torch.from_numpy(raw).view(dtype).reshape(info["shape"])
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, object]:
+    """A ``torch.save`` file, read with ``weights_only=True`` (and
+    memory-mapped where it is in the zip format); a ``state_dict`` entry is
+    unwrapped. Nested dicts stay nested: an ``ip_adapter.bin`` holds
+    ``{"image_proj": {...}, "ip_adapter": {...}}``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True, mmap=zipfile.is_zipfile(path))
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
+def load_checkpoint(path: str) -> Dict[str, object]:
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    return load_torch_checkpoint(path)
+
+
+def _apply_aliases(key: str, aliases: Mapping[str, str]) -> str:
+    for old, new in aliases.items():
+        key = key.replace(old, new)
+    return key
+
+
+def _check_shape(name: str, preset: str, want: Tuple[int, ...], got: Tuple[int, ...]) -> None:
+    if tuple(want) != tuple(got):
+        raise ValueError(
+            f"checkpoint tensor {name} has shape {tuple(got)}, the {preset} preset's model "
+            f"expects {tuple(want)}: wrong checkpoint for this architecture preset?"
+        )
+
+
+@torch.no_grad()
+def load_into(module: nn.Module, state_dict: Mapping[str, object], preset: str,
+              aliases: Optional[Mapping[str, str]] = None) -> Set[str]:
+    """Copy every tensor of ``state_dict`` whose key (after ``aliases``) is a
+    key of ``module.state_dict()`` into the module in place: cast to the
+    module's dtype, onto its device, into its memory format (a
+    ``channels_last`` conv kernel stays so). A 4-D tensor for a 5-D
+    InflatedConv3d weight (O, I, 1, kH, kW) gains its unit time axis. Keys
+    the module lacks are ignored. Returns the module keys written."""
+    own = module.state_dict()
+    written = set()
+    for key, value in state_dict.items():
+        if not torch.is_tensor(value):
+            continue
+        key = _apply_aliases(key, aliases) if aliases else key
+        target = own.get(key)
+        if target is None:
+            continue
+        if value.ndim == 4 and target.ndim == 5 and target.shape[2] == 1:
+            value = value.unsqueeze(2)
+        _check_shape(key, preset, target.shape, value.shape)
+        target.copy_(value)
+        written.add(key)
+    return written
+
+
+def missing_keys(module: nn.Module, written: Iterable[str]) -> List[str]:
+    """Keys of ``module.state_dict()`` that no checkpoint wrote."""
+    written = set(written)
+    return [k for k in module.state_dict() if k not in written]
+
+
+def ip_adapter_unet_state_dict(cfg, ip_state_dict: Mapping[str, object]) -> Dict[str, object]:
+    """The numbered ``{2i + 1}.to_k_ip.weight`` / ``.to_v_ip.weight`` of an
+    ``ip_adapter.bin`` ("ip_adapter" part) under the UNet's own keys, site i
+    of ``ip_adapter_site_paths`` (``convert_ip_adapter_unet``,
+    musev_tpu/models/sd_weights.py:719)."""
+    sd = ip_state_dict.get("ip_adapter", ip_state_dict)
+    out = {}
+    for i, site in enumerate(ip_adapter_site_paths(cfg)):
+        for proj in ("to_k_ip", "to_v_ip"):
+            key = f"{2 * i + 1}.{proj}.weight"
+            if key in sd:
+                out[f"{site}.{proj}.weight"] = sd[key]
+    return out
+
+
+def image_proj_state_dict(ip_state_dict: Mapping[str, object]) -> Mapping[str, object]:
+    """The ImageProjModel part of an ``ip_adapter.bin`` ("image_proj":
+    proj.weight/bias, norm.weight/bias; ``convert_image_proj``, :747)."""
+    return ip_state_dict.get("image_proj", ip_state_dict)

@@ -1,41 +1,61 @@
-"""Model construction: preset name -> randomly initialized ``MusevModels``.
+"""Model construction: a preset -> ``MusevModels``, random or from checkpoints.
 
 Counterpart of ``musev_tpu/pipelines/loader.py`` for the three presets
-(``configs/model_registry.py:69-80``): ``musev``; ``musev_referencenet``,
-which adds the ReferenceNet, the ViT-H CLIP vision encoder and the
-IP-Adapter ImageProjModel, 1024 -> 4 x 768; ``musev_referencenet_pose``,
-which adds the ControlNet (320/640/1280/1280, stem 16/32/96/256) to those.
-With no checkpoints in the repository, weights are drawn at full width from
-a seed the way the JAX package's ``fast_init`` draws them (N(0, 0.02) for
-matrices, zero biases, unit norm scales), the zero-initialised fuse
-``to_out`` and ControlNet zero convs included, so the branches act. The JAX
-loader builds the PoseGuider only from a checkpoint; without one, a caller
-builds ``MusevModels`` with a ``PoseGuider`` of its own. Checkpoint
-ingestion and the IP-Adapter-Plus Resampler are not ported yet.
+(``configs/model_registry.py``): ``musev``; ``musev_referencenet``, which adds
+the ReferenceNet, the ViT-H CLIP vision encoder and the IP-Adapter
+ImageProjModel, 1024 -> 4 x 768; ``musev_referencenet_pose``, which adds the
+ControlNet (320/640/1280/1280, stem 16/32/96/256) to those. Every module is
+first drawn at full width from a seed the way the JAX package's
+``fast_init`` draws it (N(0, 0.02) for matrices, zero biases, unit norm
+scales), the zero-initialised fuse ``to_out`` and ControlNet zero convs
+included, so the branches act. Then the preset's checkpoint files are read
+into it (``sd_weights.load_into``), in the JAX loader's order: the unet
+file, the T2I base (``sd_base``) over its spatial sites (an original-LDM
+``.ckpt`` is split, and its VAE and text encoder serve where no explicit
+file loads), the VAE, text encoder, ReferenceNet, CLIP vision, the
+IP-Adapter (its ``image_proj`` into the ImageProjModel, its numbered
+``to_k_ip``/``to_v_ip`` onto the UNet's attn2 sites), the ControlNet and
+the PoseGuider, built only when its slot is set. ``strict=True`` refuses a
+set path that is missing and a module with a checkpoint of which some key
+came from no file: the UNet's keys are checked against the union of what
+the unet, sd_base and ip_adapter files wrote.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import logging
+import os
+from typing import Dict, Optional, Set, Union
 
 import torch
 from torch import nn
 
-from ..models.clip_text import CLIPTextConfig, CLIPTextModel
-from ..models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+from ..configs.model_registry import ModelPreset, get_model_preset
+from ..models import sd_weights
+from ..models.clip_text import CLIPTextModel
+from ..models.clip_vision import CLIPVisionModel
 from ..models.common import GroupNorm, LayerNorm
-from ..models.controlnet import ControlNet, ControlNetConfig
+from ..models.controlnet import ControlNet, ControlNetConfig, PoseGuider
 from ..models.ip_adapter import ImageProjModel
-from ..models.referencenet import ReferenceNet2D, ReferenceNetConfig
-from ..models.unet3d import UNet3D, musev_config, musev_referencenet_config
-from ..models.vae import AutoencoderKL, VAEConfig
-from ..utils.tokenizer import HashTokenizer
+from ..models.ldm_convert import is_ldm_checkpoint, split_ldm_checkpoint
+from ..models.referencenet import ReferenceNet2D
+from ..models.unet3d import UNet3D
+from ..models.vae import AutoencoderKL
+from ..utils.tokenizer import get_tokenizer
 from .pipeline import MusevModels
 
-_PRESETS = ("musev", "musev_referencenet", "musev_referencenet_pose")
-# ModelPreset defaults of the referencenet presets (model_registry.py:35-42)
-IP_ADAPTER_CLIP_DIM = 1024
-IP_ADAPTER_TOKENS = 4
+logger = logging.getLogger(__name__)
+
+# the checkpoint slots, each a ``<slot>_checkpoint`` field of ModelPreset
+SLOTS = ("unet", "sd_base", "vae", "text", "referencenet", "clip_vision", "ip_adapter",
+         "controlnet", "pose_guider")
+# preset fields whose branch is not ported yet: (field, what, ROADMAP queue 1 item)
+NOT_PORTED_SLOTS = (
+    ("ip_adapter_face_checkpoint", "the FaceID IP-Adapter", 9),
+    ("lora_checkpoints", "LoRA", 11),
+    ("textual_inversion_checkpoints", "textual inversion", 11),
+    ("lcm_lora_checkpoint", "LCM-LoRA", 11),
+)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -47,6 +67,34 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def resolve_dtype(device: torch.device, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """bf16 on CUDA, float32 on the CPU, unless given; on CUDA the port's
+    kernels take bf16 only, so another dtype raises here rather than deep
+    inside the first attention call."""
+    if dtype is None:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"musev_torch's CUDA kernels take bfloat16, not {dtype}: use bfloat16 on the "
+            "card, or device='cpu' for float32"
+        )
+    return dtype
+
+
+def refuse_unported(preset: ModelPreset) -> None:
+    """Raise NotImplementedError for a preset field whose branch the port lacks."""
+    for field, what, item in NOT_PORTED_SLOTS:
+        if getattr(preset, field):
+            raise NotImplementedError(
+                f"{field} ({what}) is not ported to musev_torch yet (ROADMAP queue 1, item {item})"
+            )
+    if preset.ip_adapter_model_name != "IPAdapter":
+        raise NotImplementedError(
+            f"IP-Adapter model {preset.ip_adapter_model_name!r} is not ported to musev_torch yet "
+            "(only the ImageProjModel of 'IPAdapter'; ROADMAP queue 1, item 9)"
+        )
 
 
 @torch.no_grad()
@@ -71,48 +119,130 @@ def _conv_weights_channels_last(module: nn.Module) -> None:
             m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
 
 
+def _checkpoint_paths(preset: ModelPreset, strict: bool) -> Dict[str, str]:
+    """The set slots whose file exists; a set path that does not exist
+    raises under ``strict`` and is logged otherwise."""
+    paths = {}
+    for slot in SLOTS:
+        path = getattr(preset, f"{slot}_checkpoint")
+        if not path:
+            continue
+        if os.path.exists(path):
+            paths[slot] = path
+        elif strict:
+            raise FileNotFoundError(
+                f"{slot}_checkpoint {path!r} does not exist: the network would silently "
+                "stay at random init"
+            )
+        else:
+            logger.warning("%s_checkpoint %r does not exist: the network stays at its random "
+                           "init", slot, path)
+    return paths
+
+
 def build_models(
-    preset: str = "musev",
+    preset: Union[str, ModelPreset] = "musev",
     *,
     device: Union[str, torch.device, None] = None,
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
-    ip_adapter_model_name: str = "IPAdapter",
+    strict: bool = False,
 ) -> MusevModels:
-    """Full-width random-weight models for ``preset`` on ``device`` (default
-    CUDA, bf16; float32 on the CPU)."""
-    if preset not in _PRESETS:
-        raise ValueError(f"unknown preset {preset!r}")
-    if ip_adapter_model_name != "IPAdapter":
-        raise NotImplementedError(
-            f"IP-Adapter model {ip_adapter_model_name!r} is not ported to musev_torch yet "
-            "(only the ImageProjModel of 'IPAdapter')"
-        )
+    """Full-width models of ``preset`` (a name or a ``ModelPreset``) on
+    ``device`` (default CUDA, bf16; float32 on the CPU), drawn from ``seed``
+    and then read from the preset's checkpoint files."""
+    if isinstance(preset, str):
+        preset = get_model_preset(preset)
+    refuse_unported(preset)
     device = resolve_device(device)
-    if dtype is None:
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    dtype = resolve_dtype(device, dtype)
+    paths = _checkpoint_paths(preset, strict)
     # float32 runs stay full float32, as the JAX reference's matmuls are
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    text_cfg = CLIPTextConfig()
-    refnet = preset.startswith("musev_referencenet")
-    pose = preset == "musev_referencenet_pose"
-    unet_cfg = musev_referencenet_config() if refnet else musev_config()
+    unet_cfg = preset.unet_cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
-        modules = [UNet3D(unet_cfg), AutoencoderKL(VAEConfig()), CLIPTextModel(text_cfg)]
-        if refnet:
-            modules += [ReferenceNet2D(ReferenceNetConfig()), CLIPVisionModel(CLIPVisionConfig()),
-                        ImageProjModel(IP_ADAPTER_CLIP_DIM, unet_cfg.ip_adapter_dim,
-                                       IP_ADAPTER_TOKENS)]
-        if pose:
-            modules.append(ControlNet(ControlNetConfig()))
-    for m in modules:
+        modules = dict(unet=UNet3D(unet_cfg), vae=AutoencoderKL(preset.vae_cfg),
+                       text_encoder=CLIPTextModel(preset.text_cfg))
+        if preset.referencenet_cfg is not None:
+            modules["referencenet"] = ReferenceNet2D(preset.referencenet_cfg)
+        if preset.clip_vision_cfg is not None:
+            modules["clip_vision"] = CLIPVisionModel(preset.clip_vision_cfg)
+            modules["ip_proj"] = ImageProjModel(preset.ip_adapter_clip_dim,
+                                                unet_cfg.ip_adapter_dim, preset.ip_adapter_tokens)
+        if preset.controlnet_cfg is not None:
+            modules["controlnet"] = ControlNet(preset.controlnet_cfg)
+        if preset.pose_guider_checkpoint:
+            # the guider's conv_out matches the UNet's conv_in width: its
+            # embedding is added after conv_in
+            modules["pose_guider"] = PoseGuider(preset.pose_guider_cfg or ControlNetConfig(
+                block_out_channels=unet_cfg.block_out_channels,
+                cross_attention_dim=unet_cfg.cross_attention_dim,
+                attention_heads=unet_cfg.attention_heads,
+                norm_num_groups=unet_cfg.norm_num_groups,
+            ))
+    for m in modules.values():
         init_random_(m, gen)
         m.to(dtype).eval()
         _conv_weights_channels_last(m)
-    unet, vae, text = modules[:3]
-    extra = dict(zip(("referencenet", "clip_vision", "ip_proj", "controlnet"), modules[3:]))
-    return MusevModels(unet=unet, vae=vae, text_encoder=text,
-                       tokenizer=HashTokenizer(vocab_size=text_cfg.vocab_size), **extra)
+
+    written = _load_checkpoints(preset, modules, paths)
+    if strict:
+        for name, keys in written.items():
+            missing = sd_weights.missing_keys(modules[name], keys)
+            if missing:
+                raise ValueError(
+                    f"the {name} checkpoints leave {len(missing)} required sites of the "
+                    f"{preset.name} preset unwritten (naming drift or wrong file?): "
+                    + ", ".join(missing[:8]) + (" ..." if len(missing) > 8 else "")
+                )
+    return MusevModels(tokenizer=get_tokenizer(preset.tokenizer_path, preset.text_cfg.vocab_size),
+                       **modules)
+
+
+def _load_checkpoints(preset: ModelPreset, modules: Dict[str, nn.Module],
+                      paths: Dict[str, str]) -> Dict[str, Set[str]]:
+    """Read every file of ``paths`` into ``modules``; returns, for each module
+    that some file wrote to, the keys written."""
+    written: Dict[str, Set[str]] = {}
+    ldm: Dict[str, dict] = {}
+
+    def load(name: str, state_dict, aliases=None) -> None:
+        if name not in modules:
+            logger.warning("the %s preset has no %s: its checkpoint is not read", preset.name, name)
+            return
+        keys = sd_weights.load_into(modules[name], state_dict, preset.name, aliases)
+        written.setdefault(name, set()).update(keys)
+        logger.info("%s: %d tensors loaded", name, len(keys))
+
+    if "unet" in paths:
+        load("unet", sd_weights.load_checkpoint(paths["unet"]))
+    if "sd_base" in paths:
+        # T2I base overwrite of the spatial sites (unet_loader.py:41-80); an
+        # original-LDM .ckpt is split (convert_from_ckpt.py)
+        base = sd_weights.load_checkpoint(paths["sd_base"])
+        if is_ldm_checkpoint(base):
+            ldm = split_ldm_checkpoint(base)
+            base = ldm["unet"]
+        load("unet", base)
+    # the LDM file's VAE and text encoder serve where no explicit file loads
+    for name, slot, aliases in (("vae", "vae", sd_weights._VAE_LEGACY_ALIASES),
+                                ("text_encoder", "text", None)):
+        if slot in paths:
+            load(name, sd_weights.load_checkpoint(paths[slot]), aliases)
+        elif ldm.get(slot):
+            load(name, ldm[slot], aliases)
+    for name in ("referencenet", "clip_vision"):
+        if name in paths:
+            load(name, sd_weights.load_checkpoint(paths[name]))
+    if "ip_adapter" in paths:
+        ip_sd = sd_weights.load_checkpoint(paths["ip_adapter"])
+        load("ip_proj", sd_weights.image_proj_state_dict(ip_sd))
+        if "ip_proj" in modules:
+            load("unet", sd_weights.ip_adapter_unet_state_dict(preset.unet_cfg, ip_sd))
+    for name in ("controlnet", "pose_guider"):
+        if name in paths:
+            load(name, sd_weights.load_checkpoint(paths[name]))
+    return written

@@ -1,14 +1,15 @@
-"""Tokenizer protocol and the deterministic hash tokenizer.
+"""Tokenizer protocol, the deterministic hash tokenizer and the CLIP BPE one.
 
-A copy of ``musev_tpu/utils/tokenizer.py``'s ``Tokenizer`` and
-``HashTokenizer``: with no CLIP vocabulary files in the repository, the hash
-tokenizer lets the whole stack run weight-free.
+A copy of ``musev_tpu/utils/tokenizer.py``: ``HFCLIPTokenizer`` wraps
+transformers' ``CLIPTokenizer`` over local vocabulary files (transformers is
+imported only when a path is given); with no such files in the repository,
+the hash tokenizer lets the whole stack run weight-free.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import List, Protocol
+from typing import List, Optional, Protocol
 
 
 class Tokenizer(Protocol):
@@ -39,3 +40,34 @@ class HashTokenizer:
             h = int.from_bytes(hashlib.sha1(word.encode()).digest()[:4], "little")
             out.append(h % (self.vocab_size - 3) + 1)
         return out
+
+
+class HFCLIPTokenizer:
+    """Wraps transformers.CLIPTokenizer loaded from a local path."""
+
+    def __init__(self, path: str):
+        from transformers import CLIPTokenizer
+
+        self._tok = CLIPTokenizer.from_pretrained(path)
+        self.bos_token_id = self._tok.bos_token_id
+        self.eos_token_id = self._tok.eos_token_id
+        self.pad_token_id = self._tok.pad_token_id or self.eos_token_id
+        self.model_max_length = self._tok.model_max_length
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok(text).input_ids[1:-1]
+
+
+def get_tokenizer(path: Optional[str] = None, vocab_size: int = 49408) -> Tokenizer:
+    """Real CLIP tokenizer from ``path``, or the hash fallback over
+    ``vocab_size`` ids when no path is given. A given path that fails to
+    load raises: a mistyped tokenizer path must not silently hash-tokenize."""
+    if path is not None:
+        try:
+            return HFCLIPTokenizer(path)
+        except Exception as e:
+            raise ValueError(
+                f"tokenizer path {path!r} failed to load: {e}. Omit the path "
+                "to use the hash fallback tokenizer."
+            ) from e
+    return HashTokenizer(vocab_size=vocab_size)

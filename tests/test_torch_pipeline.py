@@ -26,6 +26,7 @@ from musev_tpu.pipelines.pipeline import MusevModels as JModels
 from musev_tpu.pipelines.pipeline import MusevPipeline as JPipeline
 from musev_tpu.schedulers.euler_discrete import EulerDiscreteScheduler as JEuler
 from musev_tpu.utils.tokenizer import HashTokenizer as JHashTokenizer
+from musev_torch.configs.model_registry import get_model_preset
 from musev_torch.models import convert
 from musev_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from musev_torch.models.unet3d import UNet3D, UNet3DConfig
@@ -134,4 +135,5 @@ def test_build_models_needs_cuda_unless_cpu_is_asked():
     with pytest.raises(ValueError, match="unknown preset"):
         build_models("musev_pose", device="cpu")
     with pytest.raises(NotImplementedError, match="IPAdapterPlus"):
-        build_models("musev_referencenet", device="cpu", ip_adapter_model_name="IPAdapterPlus")
+        build_models(get_model_preset("musev_referencenet", ip_adapter_model_name="IPAdapterPlus"),
+                     device="cpu")
