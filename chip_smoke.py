@@ -54,6 +54,25 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    launched in the CLI's run and (the wide d = 512 instance too) in the
    profile of the direct clip, which fails if it holds no launches; prints which optional packages import and whether the native
    video library builds;
+   then phase ``adapters``, this slice's path, on phase ``cli``'s files:
+   it writes a seeded rank-8 kohya LoRA (fp16) over every UNet attention
+   projection and every CLIP text attention and MLP linear, an LCM-LoRA
+   over the same UNet sites and a 2-vector ``badhandv4`` embedding (bf16),
+   and drives the text2video CLI with ``--lcm_lora_path``, ``--lora_path
+   <file>:0.8`` and ``--textual_inversion`` at the path's operating point
+   with 4 video and 4 T2I steps (the default V2 negative prompt holds the
+   trigger). The same adapters then go into a model loaded from the same
+   files through ``MusevPipeline``'s ``load_textual_inversion``,
+   ``load_lora`` and ``enable_lcm``. Fails unless the table's new rows are
+   the file's bit for bit and bind the trigger, every fused weight is
+   within one bf16 ulp of bf16(float32(W) + s * delta) computed on the CPU,
+   the direct clip's frames equal the CLI's and its profiled rerun's bit
+   for bit, and flash, the wide instance, K4, K6 and K7 launched. After
+   ``unload_lora`` it prints the weights' drift from before the fuses in
+   bf16 ulps, then runs one clip of each other sampler (``euler_ancestral``,
+   ``ddim``, ``ddpm``, ``lcm``, ``dpmpp_2m``, and ``euler`` with
+   ``s_churn`` 1) at the same operating point twice: finite, and the rerun
+   bit for bit;
 4. path ``musev_referencenet``: the same for image-to-video from a seeded
    random 576x576 condition image, which is also the ReferenceNet and
    IP-Adapter image, at the default 10 video steps;
@@ -170,6 +189,13 @@ TOL_REL_L2 = 1e-2  # ||got - want|| / ||want||
 TOL_MAX_RATIO = 2e-2  # max |got - want| / max |want|
 PLAIN_LOGIT_BYTES = 2 << 30  # chunk the plain version's fp32 logits to 2 GiB
 SPLIT_WEIGHT_SCALE = 0.01  # weights of the split check's UNet call (see phase_split)
+# phase adapters: the clips' video and T2I steps, the LoRAs' rank, the
+# embedding's trigger (in the V2 negative prompt), the other samplers
+ADAPTER_STEPS = 4
+LORA_RANK = 8
+TRIGGER = "badhandv4"
+SAMPLERS = (("euler_ancestral", {}), ("ddim", {}), ("ddpm", {}), ("lcm", {}), ("dpmpp_2m", {}),
+            ("euler", {"s_churn": 1.0}))
 
 
 def fail(msg: str) -> None:
@@ -657,14 +683,106 @@ def in_sd_base(key: str) -> bool:
     return not any(s in key for s in ("temp_", "frame_embedding", "transformer_in"))
 
 
-def phase_cli(torch, rerun_frames: int, need: tuple) -> dict:
-    """The text2video CLI at the path's operating point from checkpoint files
-    written here (see the module docstring); returns its record."""
+def drive_cli(torch, tmp: Path, out: str, files: dict, args: dict, need: tuple, phase: str,
+              extra=()) -> dict:
+    """``musev_torch.cli.text2video.main`` on a one-task CSV at the operating
+    point ``args`` from the checkpoint ``files`` (``--strict_checkpoints``)
+    plus the flags ``extra``, the kernels' counts zeroed just before; fails
+    unless it wrote one clip of the path's frames and launched every kernel
+    in ``need``. Returns the frames as written, the CLI's wall and clip
+    seconds, the launch counts and the peak device memory."""
     import numpy as np
 
     from musev_torch.cli import text2video as cli
+    from musev_torch.io.video import VideoReader, native_available
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    (tmp / "tasks.csv").write_text(f"name,prompt\ncli,{args['prompt']}\n")
+    argv = ["--test_data_path", str(tmp / "tasks.csv"), "--output_dir", str(tmp / out),
+            "--strict_checkpoints", "--height", str(args["height"]),
+            "--width", str(args["width"]), "--time_size", str(args["video_length"]),
+            "--context_frames", str(args["context_frames"]),
+            "--context_overlap", str(args["context_overlap"]),
+            "--num_inference_steps", str(args["num_inference_steps"]),
+            "--video_num_inference_steps", str(args["video_num_inference_steps"]),
+            "--seed", str(args["seed"]), *extra]
+    for slot, f in files.items():
+        argv += [f"--{slot}", str(f)]
+    kept, clip_s = {}, []
+    real_write, real_t2v = cli.write_video, MusevPipeline.text2video
+
+    def keep(path, frames, fps):  # the mp4 is lossy: hold the frames as written
+        kept[path] = frames.copy()
+        real_write(path, frames, fps=fps)
+
+    def timed_t2v(self, *a, **k):
+        t = time.time()
+        out = real_t2v(self, *a, **k)
+        torch.cuda.synchronize()
+        clip_s.append(time.time() - t)
+        return out
+
+    cli.write_video, MusevPipeline.text2video = keep, timed_t2v
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        t1 = time.time()
+        written = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.time() - t1
+    finally:
+        cli.write_video, MusevPipeline.text2video = real_write, real_t2v
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    if len(written) != 1:
+        fail(f"the CLI wrote {written}, not one clip")
+    native = native_available()
+    if native:
+        with VideoReader(written[0]) as r:
+            mp4 = (r.num_frames, r.height, r.width)
+        frames = kept[written[0]]
+    else:
+        from PIL import Image
+
+        pngs = sorted(Path(written[0]).glob("*.png"))
+        frames = np.stack([np.asarray(Image.open(p)) for p in pngs])
+        mp4 = None
+    print(f"{phase}: CLI {cli_s:.1f} s (clip {clip_s[0]:.2f} s), peak device memory "
+          f"{peak_gb:.1f} GB, wrote {Path(written[0]).name} "
+          f"({'native mp4' if native else 'PNG frames through PIL'}), frames "
+          f"{frames.shape}, mp4 read back (frames, H, W) {mp4}, launches {launches}")
+    want_frames = (VIDEO_SHAPE[1], *VIDEO_SHAPE[2:])
+    if frames.shape != want_frames or (mp4 is not None and mp4 != want_frames[:3]):
+        fail(f"the CLI wrote frames {frames.shape} (mp4 {mp4}), expected {want_frames}")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the text2video CLI launched {name} no time")
+    return dict(frames=frames, cli_s=cli_s, clip_s=clip_s[0], launches=launches,
+                peak_gb=peak_gb)
+
+
+def check_profile_launches(profile: dict, what: str) -> None:
+    """Fails unless the profile recorded launches of flash, its wide d = 512
+    instance, K4 and the pivots (one kernel name for K6 and K7)."""
+    seen = profile.get("port_kernel_launches")
+    if not seen:
+        fail(f"the profile of {what} recorded no launches, so the wide d = 512 instance is "
+             "unchecked")
+    missed = [k for k in ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "short_attn_kernel",
+                          "relayout_kernel") if seen[k] <= 0]
+    if missed:
+        fail(f"{what} launched {missed} no time: {seen}")
+
+
+def phase_cli(torch, tmp: Path, rerun_frames: int, need: tuple):
+    """The text2video CLI at the path's operating point from checkpoint files
+    written into ``tmp`` (see the module docstring); returns its record and
+    the files, by preset field."""
+    import numpy as np
+
     from musev_torch.configs.model_registry import get_model_preset, resolve_negative_prompt
-    from musev_torch.io.video import VideoReader, native_available, native_error
+    from musev_torch.io.video import native_available, native_error
     from musev_torch.pipelines.loader import build_models
     from musev_torch.pipelines.pipeline import MusevPipeline
 
@@ -674,106 +792,40 @@ def phase_cli(torch, rerun_frames: int, need: tuple) -> dict:
           f"{'built' if native else 'unavailable: ' + str(native_error())}")
     writer = "native mp4" if native else "PNG frames through PIL"
     t2v_args = dict(T2V_ARGS, negative_prompt=resolve_negative_prompt("V2"))
-    with tempfile.TemporaryDirectory(prefix="_cli_phase_", dir=ROOT) as tmp:
-        tmp = Path(tmp)
-        files = dict(unet_checkpoint=tmp / "unet.safetensors", vae_checkpoint=tmp / "vae.pth",
-                     text_checkpoint=tmp / "text.pth",
-                     sd_base_checkpoint=tmp / "sd_base.safetensors")
-        t0 = time.time()
-        donor = build_models("musev", seed=1)
-        write_safetensors(files["unet_checkpoint"], donor.unet.state_dict())
-        for slot, module in (("vae_checkpoint", donor.vae), ("text_checkpoint", donor.text_encoder)):
-            torch.save({k: v.contiguous().cpu() for k, v in module.state_dict().items()}, files[slot])
-        del donor
-        base = build_models("musev", seed=2).unet.state_dict()
-        write_safetensors(files["sd_base_checkpoint"],
-                          {k: v for k, v in base.items() if in_sd_base(k)})
-        del base
-        torch.cuda.empty_cache()
-        write_s = time.time() - t0
-        gb = {k: round(f.stat().st_size / 1e9, 3) for k, f in files.items()}
-        print(f"phase cli: checkpoints written in {write_s:.1f} s, GB {gb}")
+    files = dict(unet_checkpoint=tmp / "unet.safetensors", vae_checkpoint=tmp / "vae.pth",
+                 text_checkpoint=tmp / "text.pth",
+                 sd_base_checkpoint=tmp / "sd_base.safetensors")
+    t0 = time.time()
+    donor = build_models("musev", seed=1)
+    write_safetensors(files["unet_checkpoint"], donor.unet.state_dict())
+    for slot, module in (("vae_checkpoint", donor.vae), ("text_checkpoint", donor.text_encoder)):
+        torch.save({k: v.contiguous().cpu() for k, v in module.state_dict().items()}, files[slot])
+    del donor
+    base = build_models("musev", seed=2).unet.state_dict()
+    write_safetensors(files["sd_base_checkpoint"],
+                      {k: v for k, v in base.items() if in_sd_base(k)})
+    del base
+    torch.cuda.empty_cache()
+    write_s = time.time() - t0
+    gb = {k: round(f.stat().st_size / 1e9, 3) for k, f in files.items()}
+    print(f"phase cli: checkpoints written in {write_s:.1f} s, GB {gb}")
 
-        (tmp / "tasks.csv").write_text(f"name,prompt\ncli,{T2V_ARGS['prompt']}\n")
-        argv = ["--test_data_path", str(tmp / "tasks.csv"), "--output_dir", str(tmp / "out"),
-                "--strict_checkpoints", "--height", str(T2V_ARGS["height"]),
-                "--width", str(T2V_ARGS["width"]),
-                "--time_size", str(T2V_ARGS["video_length"]),
-                "--context_frames", str(T2V_ARGS["context_frames"]),
-                "--context_overlap", str(T2V_ARGS["context_overlap"]),
-                "--num_inference_steps", str(T2V_ARGS["num_inference_steps"]),
-                "--video_num_inference_steps", str(T2V_ARGS["video_num_inference_steps"]),
-                "--seed", str(T2V_ARGS["seed"])]
-        for slot, f in files.items():
-            argv += [f"--{slot}", str(f)]
-        kept, clip_s = {}, []
-        real_write, real_t2v = cli.write_video, MusevPipeline.text2video
+    run = drive_cli(torch, tmp, "out", files, T2V_ARGS, need, "phase cli")
+    frames, launches = run["frames"], run["launches"]
+    cli_s, clip_s, peak_gb = run["cli_s"], run["clip_s"], run["peak_gb"]
 
-        def keep(path, frames, fps):  # the mp4 is lossy: hold the frames as written
-            kept[path] = frames.copy()
-            real_write(path, frames, fps=fps)
-
-        def timed_t2v(self, *a, **k):
-            t = time.time()
-            out = real_t2v(self, *a, **k)
-            torch.cuda.synchronize()
-            clip_s.append(time.time() - t)
-            return out
-
-        cli.write_video, MusevPipeline.text2video = keep, timed_t2v
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        try:
-            t1 = time.time()
-            written = cli.main(argv)
-            torch.cuda.synchronize()
-            cli_s = time.time() - t1
-        finally:
-            cli.write_video, MusevPipeline.text2video = real_write, real_t2v
-        launches = read_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.empty_cache()
-        if len(written) != 1:
-            fail(f"the CLI wrote {written}, not one clip")
-        if native:
-            with VideoReader(written[0]) as r:
-                mp4 = (r.num_frames, r.height, r.width)
-            frames = kept[written[0]]
-        else:
-            from PIL import Image
-
-            pngs = sorted(Path(written[0]).glob("*.png"))
-            frames = np.stack([np.asarray(Image.open(p)) for p in pngs])
-            mp4 = None
-        print(f"phase cli: CLI {cli_s:.1f} s (clip {clip_s[0]:.2f} s), peak device memory "
-              f"{peak_gb:.1f} GB, wrote {Path(written[0]).name} ({writer}), frames "
-              f"{frames.shape}, mp4 read back (frames, H, W) {mp4}, launches {launches}")
-        want_frames = (VIDEO_SHAPE[1], *VIDEO_SHAPE[2:])
-        if frames.shape != want_frames or (mp4 is not None and mp4 != want_frames[:3]):
-            fail(f"the CLI wrote frames {frames.shape} (mp4 {mp4}), expected {want_frames}")
-        for name in need:
-            if launches[name] <= 0:
-                fail(f"the text2video CLI launched {name} no time")
-
-        t2 = time.time()
-        preset = get_model_preset("musev", **{k: str(f) for k, f in files.items()})
-        models = build_models(preset, strict=True)
-        torch.cuda.synchronize()
-        load_s = time.time() - t2
+    t2 = time.time()
+    preset = get_model_preset("musev", **{k: str(f) for k, f in files.items()})
+    models = build_models(preset, strict=True)
+    torch.cuda.synchronize()
+    load_s = time.time() - t2
     profile, res = profile_path(torch, MusevPipeline(models).text2video, t2v_args)
     diff = int(np.abs(frames.astype(np.int16) - to_uint8(res.videos)).max())
     print(f"phase cli: load {load_s:.1f} s; frames against MusevPipeline.text2video on the "
           f"loaded models: max |diff| {diff} (the path's rerun spread {rerun_frames})")
     if diff > rerun_frames:
         fail(f"the CLI's frames differ from the direct call by {diff} > {rerun_frames}")
-    seen = profile.get("port_kernel_launches")
-    if not seen:
-        fail("the profile of the clip on the loaded models recorded no launches, so the "
-             "wide d = 512 instance is unchecked")
-    missed = [k for k in ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "short_attn_kernel",
-                          "relayout_kernel") if seen[k] <= 0]
-    if missed:
-        fail(f"the clip on the loaded models launched {missed} no time: {seen}")
+    check_profile_launches(profile, "the clip on the loaded models")
 
     # bit for bit: temporal sites, VAE and text from seed 1, spatial sites from seed 2
     loaded = {name: getattr(models, name).state_dict() for name in ("unet", "vae", "text_encoder")}
@@ -801,12 +853,219 @@ def phase_cli(torch, rerun_frames: int, need: tuple) -> dict:
     record = dict(packages=packages, native_video=native, video_writer=writer,
                   safetensors_writer="chip_smoke.write_safetensors", checkpoint_gb=gb,
                   write_checkpoints_s=write_s, load_checkpoints_s=load_s, cli_s=cli_s,
-                  clip_s=clip_s[0], peak_gb=peak_gb, launches=launches,
+                  clip_s=clip_s, peak_gb=peak_gb, launches=launches,
                   frames=list(frames.shape), max_frame_diff=diff, rerun_frame_change=rerun_frames,
                   tensors_checked=n_checked, dtype=str(dtype), profile=profile)
     print("phase cli: " + json.dumps({k: record[k] for k in (
         "write_checkpoints_s", "load_checkpoints_s", "cli_s", "clip_s", "peak_gb",
         "video_writer", "safetensors_writer", "max_frame_diff")}))
+    return record, {k: str(f) for k, f in files.items()}
+
+
+def lora_sites(unet, text_encoder):
+    """The LoRA targets of phase adapters, as torch keys: every UNet attention
+    projection (to_q/k/v/out, spatial and temporal) and every CLIP text
+    attention and MLP linear."""
+    import re
+
+    from musev_torch.models.sd_weights import clip_text_key_map, unet3d_key_map
+
+    params = dict(unet.named_parameters())
+    unet_sites = [tk for tk, _, kind in unet3d_key_map(unet.cfg) if kind == "linear"
+                  and re.search(r"\.attn[12]\.to_(q|k|v|out\.0)$", tk) and f"{tk}.weight" in params]
+    text_sites = [tk for tk, _, kind in clip_text_key_map(text_encoder.cfg) if kind == "linear"]
+    return unet_sites, text_sites
+
+
+def kohya_lora(torch, targets, seed: int) -> dict:
+    """A seeded rank-LORA_RANK kohya LoRA in float16 over ``targets``
+    ((prefix, module, torch keys) triples), factors N(0, 0.02), alpha rank/2."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for prefix, module, sites in targets:
+        for tk in sites:
+            out, inn = module.get_parameter(f"{tk}.weight").shape
+            key = prefix + tk.replace(".", "_")
+            sd[f"{key}.lora_down.weight"] = (torch.randn(LORA_RANK, inn, generator=gen)
+                                             * 0.02).half()
+            sd[f"{key}.lora_up.weight"] = (torch.randn(out, LORA_RANK, generator=gen)
+                                           * 0.02).half()
+            sd[f"{key}.alpha"] = torch.tensor(LORA_RANK / 2, dtype=torch.float16)
+    return sd
+
+
+def bf16_ulps(torch, got, want, at=None):
+    """|got - want| in units of the bf16 spacing at |at| (default ``want``;
+    float32 tensors)."""
+    mag = (want if at is None else at).abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return (got - want).abs() / (torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+        torch.log2(mag))))
+
+
+def phase_adapters(torch, tmp: Path, files: dict, need: tuple) -> dict:
+    """This slice's path: the LCM + LoRA + textual-inversion clip through the
+    text2video CLI, then the same adapters by ``MusevPipeline``'s methods
+    (each fuse against its plain version on the CPU), every other sampler
+    and the unfuse (see the module docstring). Returns its record."""
+    import numpy as np
+
+    from musev_torch.configs.model_registry import get_model_preset, resolve_negative_prompt
+    from musev_torch.models.sd_weights import load_safetensors
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    args = dict(T2V_ARGS, video_num_inference_steps=ADAPTER_STEPS,
+                num_inference_steps=ADAPTER_STEPS, negative_prompt=resolve_negative_prompt("V2"))
+    plain = build_models(get_model_preset("musev", **files), strict=True)
+    unet_sites, text_sites = lora_sites(plain.unet, plain.text_encoder)
+    unet_targets = ("lora_unet_", plain.unet, unet_sites)
+    t0 = time.time()
+    adapters = dict(lora=tmp / "style.safetensors", lcm=tmp / "lcm_lora.safetensors",
+                    ti=tmp / f"{TRIGGER}.safetensors")
+    write_safetensors(adapters["lora"], kohya_lora(
+        torch, [unet_targets, ("lora_te_", plain.text_encoder, text_sites)], seed=11))
+    write_safetensors(adapters["lcm"], kohya_lora(torch, [unet_targets], seed=12))
+    emb = (torch.randn(2, plain.text_encoder.cfg.hidden_size,
+                       generator=torch.Generator().manual_seed(13)) * 0.02).to(torch.bfloat16)
+    write_safetensors(adapters["ti"], {"emb_params": emb})
+    write_s = time.time() - t0
+    print(f"phase adapters: LoRA over {len(unet_sites)} UNet attention projections and "
+          f"{len(text_sites)} CLIP linears, LCM-LoRA over the same UNet sites (rank {LORA_RANK}, "
+          f"kohya, fp16), a 2-vector {TRIGGER!r} embedding (bf16); written in {write_s:.1f} s")
+
+    # 1. the slice's path through the CLI: --lcm_lora_path selects the lcm sampler
+    run = drive_cli(torch, tmp, "out_adapters", files, args, need, "phase adapters", extra=(
+        "--lcm_lora_path", str(adapters["lcm"]), "--lora_path", f"{adapters['lora']}:0.8",
+        "--textual_inversion", str(adapters["ti"])))
+
+    # 2. the same adapters through the pipeline's methods, each fuse against
+    # bf16(float32(W) + s * delta) with the delta computed on the CPU
+    snap_keys = [("unet", tk) for tk in unet_sites] + [("text_encoder", tk) for tk in text_sites]
+
+    def snapshot():
+        return {(m, tk): getattr(plain, m).get_parameter(f"{tk}.weight").detach().to(
+            "cpu", torch.float32, copy=True) for m, tk in snap_keys}
+
+    original = snapshot()
+    states = [original]  # the LoRA-touched weights before, between and after the fuses
+    pipe = MusevPipeline(plain)
+    pipe.load_textual_inversion(str(adapters["ti"]))
+    table = plain.text_encoder.text_model.embeddings.token_embedding.weight
+    vocab = plain.text_encoder.cfg.vocab_size
+    ti_equal = bool(torch.equal(table[vocab:].cpu(), emb))
+    bound = plain.tokenizer.encode(args["negative_prompt"])
+    print(f"phase adapters: embedding rows {tuple(table[vocab:].shape)} equal the file's bit for "
+          f"bit: {ti_equal}; the negative prompt's ids hold the trigger's "
+          f"{[i for i in bound if i >= vocab]}")
+    if not ti_equal or [vocab, vocab + 1] != [i for i in bound if i >= vocab][:2]:
+        fail("the textual inversion did not append the file's rows or bind its trigger")
+    fuse = {}
+    for name, scale, prefixes in (("lora", 0.8, {"unet": "lora_unet_",
+                                                  "text_encoder": "lora_te_"}),
+                                  ("lcm", 1.0, {"unet": "lora_unet_"})):
+        before = snapshot()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        if name == "lora":
+            pipe.load_lora(str(adapters[name]), scale)
+        else:
+            pipe.enable_lcm(str(adapters[name]), scale)
+        torch.cuda.synchronize()
+        fuse_s = time.time() - t1
+        sd = load_safetensors(str(adapters[name]))
+        after = snapshot()
+        worst, n_off, n_el = 0.0, 0, 0
+        for (m, tk), w0 in before.items():
+            if m not in prefixes:
+                if not torch.equal(after[(m, tk)], w0):
+                    fail(f"the {name} fuse changed {m}.{tk}, which it does not name")
+                continue
+            key = prefixes[m] + tk.replace(".", "_")
+            down = sd[f"{key}.lora_down.weight"].float()
+            delta = float(sd[f"{key}.alpha"]) / down.shape[0] * (
+                sd[f"{key}.lora_up.weight"].float() @ down)
+            want = (w0 + scale * delta).to(plain.dtype).float()
+            ulps = bf16_ulps(torch, after[(m, tk)], want)
+            worst = max(worst, float(ulps.max()))
+            n_off += int((ulps > 0).sum())
+            n_el += want.numel()
+        fuse[name] = dict(seconds=fuse_s, elements=n_el, off_by_one_ulp=n_off, worst_ulps=worst)
+        states.append(after)
+        print(f"phase adapters: {name} fuse {fuse_s:.3f} s over {n_el} weights; against the CPU's "
+              f"bf16(float32(W) + {scale} * delta): {n_off} differ, by at most {worst:.0f} ulp")
+        if worst > 1:
+            fail(f"the {name} fuse is {worst} bf16 ulps from its plain version (limit 1)")
+
+    zero_counts()
+    t2 = time.time()
+    res = pipe.text2video(**args)
+    torch.cuda.synchronize()
+    direct_s = time.time() - t2
+    direct_launches = read_counts()
+    diff = int(np.abs(run["frames"].astype(np.int16) - to_uint8(res.videos)).max())
+    profile, again = profile_path(torch, pipe.text2video, args)
+    rerun = int(np.abs(to_uint8(again.videos).astype(np.int16) - to_uint8(res.videos)).max())
+    print(f"phase adapters: direct clip {direct_s:.2f} s, launches {direct_launches}; frames "
+          f"against the CLI's max |diff| {diff}; the profiled rerun moves the frames by up to "
+          f"{rerun}")
+    if diff or rerun:
+        fail(f"the direct clip differs from the CLI's by {diff} or from its rerun by {rerun}")
+    check_profile_launches(profile, "the direct LCM + LoRA + TI clip")
+    for name in ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows"):
+        if direct_launches[name] <= 0:
+            fail(f"the direct LCM + LoRA + TI clip launched {name} no time")
+
+    # 3. every other sampler on the card (the adapters unfused, the embedding kept)
+    t3 = time.time()
+    pipe.unload_lora()
+    torch.cuda.synchronize()
+    unfuse_s = time.time() - t3
+    states.append(snapshot())
+    # the drift in bf16 ulps at the largest magnitude the weight took, since
+    # each of the four roundings (two fuses, two unfuses) is half an ulp at the
+    # weight's magnitude at that point (in ulps of the weight before, a weight
+    # near 0 that the fuses made large drifts without bound), and absolute
+    drift = {}
+    for m in ("unet", "text_encoder"):
+        keys = [k for k in original if k[0] == m]
+        drift[m] = dict(
+            ulps_at_peak=max(float(bf16_ulps(torch, states[-1][k], original[k], torch.stack(
+                [st[k].abs() for st in states]).amax(0)).max()) for k in keys),
+            max_abs=max(float((states[-1][k] - original[k]).abs().max()) for k in keys))
+    changed = sum(int((states[-1][k] != w0).sum()) for k, w0 in original.items())
+    n_total = sum(w0.numel() for w0 in original.values())
+    print(f"phase adapters: unload_lora {unfuse_s:.3f} s; {changed} of {n_total} weights differ "
+          f"from before the fuses; the largest drift, in bf16 ulps at the largest magnitude "
+          f"the weight took and absolute: {drift}")
+    samplers = {}
+    for name, kw in SAMPLERS:
+        spipe = MusevPipeline(plain, scheduler_name=name, scheduler_kwargs=kw)
+        t4 = time.time()
+        first = spipe.text2video(**args)
+        torch.cuda.synchronize()
+        clip_s = time.time() - t4
+        second = spipe.text2video(**args)
+        same = bool(np.array_equal(first.latents, second.latents)
+                    and np.array_equal(first.videos, second.videos))
+        finite = bool(np.isfinite(first.latents).all() and np.isfinite(first.videos).all())
+        label = name + ("" if not kw else f" {kw}")
+        samplers[label] = dict(clip_s=clip_s, rerun_bit_for_bit=same, finite=finite)
+        print(f"phase adapters: sampler {label}: clip {clip_s:.2f} s, finite {finite}, rerun bit "
+              f"for bit {same}, video {first.videos.shape}")
+        if not (same and finite) or first.videos.shape != VIDEO_SHAPE:
+            fail(f"sampler {label}: finite {finite}, rerun bit for bit {same}, "
+                 f"shape {first.videos.shape}")
+    del pipe, spipe, plain, res, again, first, second, states, original
+    torch.cuda.empty_cache()
+    record = dict(steps=ADAPTER_STEPS, lora_rank=LORA_RANK, unet_sites=len(unet_sites),
+                  text_sites=len(text_sites), write_adapters_s=write_s, cli_s=run["cli_s"],
+                  clip_s=run["clip_s"], peak_gb=run["peak_gb"], launches=run["launches"],
+                  direct_clip_s=direct_s, direct_launches=direct_launches, fuse=fuse,
+                  ti_rows_bit_for_bit=ti_equal, max_frame_diff=diff, rerun_frame_change=rerun,
+                  unfuse_s=unfuse_s, unfuse_changed=changed, unfuse_weights=n_total,
+                  unfuse_drift_ulps=drift, samplers=samplers, profile=profile)
+    print("phase adapters: " + json.dumps({k: record[k] for k in (
+        "cli_s", "clip_s", "peak_gb", "direct_clip_s", "fuse", "unfuse_drift_ulps")}))
     return record
 
 
@@ -985,7 +1244,10 @@ def main() -> None:
     paths["musev"], models, _ = phase_path(torch, "musev", "text2video", T2V_ARGS, need)
     del models
     torch.cuda.empty_cache()
-    paths["cli"] = phase_cli(torch, paths["musev"]["rerun_frame_change"], need)
+    with tempfile.TemporaryDirectory(prefix="_cli_phase_", dir=ROOT) as tmp:
+        paths["cli"], files = phase_cli(torch, Path(tmp), paths["musev"]["rerun_frame_change"],
+                                        need)
+        paths["adapters"] = phase_adapters(torch, Path(tmp), files, need)
     rng = np.random.default_rng(0)
     image = rng.uniform(0, 255, (1, 1, 576, 576, 3)).astype(np.float32)
     paths["musev_referencenet"], models, _ = phase_path(
@@ -1004,10 +1266,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     ref_err = phase_reference(torch)
 
-    # launches: this slice's path for the kernels it runs; the split UNet call
-    # for the split-merge route, which no path takes under the default carry
+    # launches: this slice's path (the LCM + LoRA + TI clip through the CLI)
+    # for the kernels it runs; the split UNet call for the split-merge route,
+    # which no path takes under the default carry
     split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
-    path_counts = dict(paths[pose]["launches"],
+    path_counts = dict(paths["adapters"]["launches"],
                        flash_attention_parts=split_counts["flash_attention_parts"])
     by_path = {name: dict({p: paths[p]["launches"][name] for p in paths},
                           **{"split UNet call": split_counts[name]})

@@ -3,11 +3,14 @@
 The flags, their defaults, the per-task key overrides and the output file
 name are the JAX CLI's, with two differences: ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch paths) and ``--dtype``, whose
-default is the port's own (bfloat16 on CUDA, float32 on the CPU). Flags
-whose branch is not ported yet raise ``NotImplementedError`` before any
-model is built; options that ``MusevPipeline.text2video`` does not take yet
-raise from there. Each task's clip is written as an mp4 when the native
-video library is available, else as PNG frames.
+default is the port's own (bfloat16 on CUDA, float32 on the CPU).
+``--scheduler`` picks any of the six samplers; ``--lcm`` or
+``--lcm_lora_path`` selects ``lcm``, and the loader fuses ``--lora_path``,
+``--textual_inversion`` and the LCM-LoRA into the models. Flags whose
+branch is not ported yet raise ``NotImplementedError`` before any model is
+built; options that ``MusevPipeline.text2video`` does not take yet raise
+from there. Each task's clip is written as an mp4 when the native video
+library is available, else as PNG frames.
 
 Usage:
   python -m musev_torch.cli.text2video --test_data_path configs/tasks/example.yaml \\
@@ -74,13 +77,14 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--scheduler", type=str, default="euler")
     p.add_argument("--lora_path", action="append", default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="LoRA safetensors, repeatable; 'path' or 'path:scale'")
     p.add_argument("--textual_inversion", action="append", default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="textual-inversion embedding, repeatable; 'path' or "
+                        "'path:trigger' (default trigger = file stem)")
     p.add_argument("--lcm_lora_path", type=str, default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="LCM-LoRA to fuse; implies --lcm")
     p.add_argument("--lcm", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="use the LCM scheduler (with --lcm_lora_path fused)")
     p.add_argument("--face_det_onnx", type=str, default=None,
                    help="not ported yet (ROADMAP queue 1, item 12)")
     p.add_argument("--face_rec_onnx", type=str, default=None,
@@ -123,10 +127,9 @@ def refuse_unported_flags(args, flags) -> None:
                 f"--{attr} is not ported to musev_torch yet (ROADMAP queue 1, item {item})")
 
 
-# flags that are not preset fields; the preset's unported slots (LoRA, textual
-# inversion, LCM-LoRA, the FaceID IP-Adapter) are refused by the loader's
-# ``refuse_unported``
-_NOT_PORTED_FLAGS = (("lcm", 11), ("face_det_onnx", 12), ("face_rec_onnx", 12))
+# flags that are not preset fields; the preset's unported slot (the FaceID
+# IP-Adapter) is refused by the loader's ``refuse_unported``
+_NOT_PORTED_FLAGS = (("face_det_onnx", 12), ("face_rec_onnx", 12))
 
 
 def _torch_dtype(name):
@@ -208,7 +211,8 @@ def main(argv=None) -> List[str]:
     from ..pipelines.pipeline import MusevPipeline
     from ..schedulers import create_scheduler
 
-    create_scheduler(args.scheduler, 1)  # an unported or unknown scheduler raises here
+    scheduler = "lcm" if (args.lcm or args.lcm_lora_path) else args.scheduler
+    create_scheduler(scheduler, 1)  # an unknown scheduler raises here
     preset = get_model_preset(
         args.model_name,
         unet_checkpoint=args.unet_checkpoint,
@@ -231,7 +235,7 @@ def main(argv=None) -> List[str]:
     tasks = generate_prompts(load_tasks(args.test_data_path))
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
                           strict=args.strict_checkpoints)
-    pipe = MusevPipeline(models, scheduler_name=args.scheduler)
+    pipe = MusevPipeline(models, scheduler_name=scheduler)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
     os.makedirs(args.output_dir, exist_ok=True)

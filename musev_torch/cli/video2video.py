@@ -7,7 +7,9 @@ windows of ``--time_size`` frames (decoded ahead on a background thread by
 processor named by ``--controlnet_name`` and writes an mp4 (PNG frames
 without the native library). The flags, defaults and output file name are
 the JAX CLI's, plus ``--device`` (default ``cuda``) and ``--tiny``;
-``--dtype`` defaults to bfloat16 on CUDA and float32 on the CPU. The ONNX
+``--dtype`` defaults to bfloat16 on CUDA and float32 on the CPU. The
+samplers and adapters are the text2video CLI's (``--lcm`` or
+``--lcm_lora_path`` selects ``lcm``). The ONNX
 host stages (``--processor_onnx``, dwpose, SAM, the face detector) and
 ``--parallel`` are not ported yet and raise before any model is built.
 """
@@ -81,13 +83,12 @@ def parse_args(argv=None):
                    default=os.environ.get("MUSEV_FACE_DET"),
                    help="not ported yet (ROADMAP queue 1, item 12)")
     p.add_argument("--lora_path", action="append", default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="LoRA safetensors, repeatable; 'path' or 'path:scale'")
     p.add_argument("--textual_inversion", action="append", default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
-    p.add_argument("--lcm_lora_path", type=str, default=None,
-                   help="not ported yet (ROADMAP queue 1, item 11)")
-    p.add_argument("--lcm", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 11)")
+                   help="textual-inversion embedding, repeatable; 'path' or "
+                        "'path:trigger'")
+    p.add_argument("--lcm_lora_path", type=str, default=None)
+    p.add_argument("--lcm", action="store_true")
     p.add_argument("--need_hist_match", action="store_true")
     p.add_argument("--record_mid_video", action="store_true",
                    help="serial denoise: carry per-step tail latents/noises "
@@ -131,7 +132,7 @@ def parse_args(argv=None):
 
 _NOT_PORTED_FLAGS = (("processor_onnx", 12), ("dwpose_det_onnx", 12), ("dwpose_pose_onnx", 12),
                      ("sam_encoder_onnx", 12), ("sam_decoder_onnx", 12),
-                     ("face_detector_onnx", 12), ("lcm", 11))
+                     ("face_detector_onnx", 12))
 
 
 def _windows(reader, args, height: int, width: int):
@@ -169,7 +170,8 @@ def main(argv=None) -> List[str]:
     from ..pipelines.pipeline import MusevPipeline
     from ..schedulers import create_scheduler
 
-    create_scheduler(args.scheduler, 1)  # an unported or unknown scheduler raises here
+    scheduler = "lcm" if (args.lcm or args.lcm_lora_path) else args.scheduler
+    create_scheduler(scheduler, 1)  # an unknown scheduler raises here
     processor = get_processor(args.controlnet_name)
     preset = get_model_preset(
         args.model_name,
@@ -193,7 +195,7 @@ def main(argv=None) -> List[str]:
     tasks = load_tasks(args.test_data_path)
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
                           strict=args.strict_checkpoints)
-    pipe = MusevPipeline(models, scheduler_name=args.scheduler)
+    pipe = MusevPipeline(models, scheduler_name=scheduler)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
     os.makedirs(args.output_dir, exist_ok=True)

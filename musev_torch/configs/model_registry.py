@@ -4,8 +4,8 @@ Counterpart of ``musev_tpu/configs/model_registry.py`` over the port's
 config classes. A ``ModelPreset`` bundles the architecture configs with the
 checkpoint-path slots a user fills in; every slot of the JAX preset is kept,
 so a task or CLI flag names the same field in both packages. The slots
-whose branch is not ported yet (the FaceID IP-Adapter, IP-Adapter-Plus,
-LoRA, textual inversion, LCM-LoRA) make ``build_models`` raise.
+whose branch is not ported yet (the FaceID IP-Adapter, IP-Adapter-Plus)
+make ``build_models`` raise.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ class ModelPreset:
     lora_checkpoints: Optional[List[str]] = None
     textual_inversion_checkpoints: Optional[List[str]] = None
     lcm_lora_checkpoint: Optional[str] = None
+    lcm_lora_scale: float = 1.0
 
 
 def get_model_preset(name: str, **overrides) -> ModelPreset:

@@ -43,3 +43,21 @@ def make_noise(
     else:
         raise ValueError(f"unknown noise_type {noise_type!r}")
     return noise.to(device)
+
+
+def step_noise(
+    sample: torch.Tensor,
+    noise=None,
+    generator=None,
+    noise_type: str = "video_fusion",
+    w_ind_noise: float = 0.5,
+) -> torch.Tensor:
+    """The float32 noise a sampler step adds to ``sample``: ``noise`` when the
+    caller gives it (a test injects the JAX package's draw), else a draw from
+    ``generator``; never from a global RNG."""
+    if noise is None:
+        if generator is None:
+            raise ValueError("this sampler step draws noise: pass a torch.Generator or noise=")
+        noise = make_noise(generator, sample.shape, noise_type=noise_type,
+                           w_ind_noise=w_ind_noise, device=sample.device)
+    return noise.to(device=sample.device, dtype=torch.float32)

@@ -33,7 +33,7 @@ from ..models.controlnet import (
 from ..models.unet3d import UNet3D, UNet3DConfig, unet3d_apply
 from ..ops.context import WindowPlan
 from ..ops.index_ops import take_frames
-from ..schedulers.euler_discrete import EulerDiscreteScheduler
+from ..schedulers import Scheduler
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -41,11 +41,14 @@ class DenoiseSpec:
     """Configuration of one VCPD denoise run (the fields this path uses)."""
 
     unet_cfg: UNet3DConfig
-    scheduler: EulerDiscreteScheduler
+    scheduler: Scheduler
     plan: WindowPlan  # or a StackedWindowPlan (per-step 'uniform' schedule)
     guidance: np.ndarray  # (num_steps,) per-step CFG scale
     n_vision_cond: int = 0
     do_cfg: bool = True
+    # the stochastic samplers' noise (the reference's noise_type contract)
+    w_ind_noise: float = 0.5
+    noise_type: str = "video_fusion"
     motion_speed: float = 8.0
     ip_adapter_scale: float = 1.0
     skip_temporal: bool = False
@@ -198,16 +201,28 @@ def denoise_loop(
     text_uc: Optional[torch.Tensor],
     text_c: torch.Tensor,
     condition_latents: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
     **conditioning,
 ) -> torch.Tensor:
     """Run the denoise steps from ``spec.start_step``; returns the final
-    float32 latents. ``conditioning``: ``predict_noise``'s ReferenceNet,
-    IP-Adapter, ControlNet and PoseGuider inputs."""
+    float32 latents. A stochastic sampler draws each step's noise from
+    ``generator`` (``spec.noise_type``, ``spec.w_ind_noise``); a multistep
+    one threads its state from ``init_state`` through the steps, as the JAX
+    package's scan carry does. ``conditioning``: ``predict_noise``'s
+    ReferenceNet, IP-Adapter, ControlNet and PoseGuider inputs."""
     lat = latents.float()
-    for i in range(spec.start_step, spec.scheduler.num_inference_steps):
+    sched = spec.scheduler
+    multistep = getattr(sched, "is_multistep", False)
+    state = sched.init_state(lat.shape, device=lat.device) if multistep else None
+    noise_kw = dict(generator=generator, w_ind_noise=spec.w_ind_noise,
+                    noise_type=spec.noise_type)
+    for i in range(spec.start_step, sched.num_inference_steps):
         noise_pred = predict_noise(unet, spec, lat, i, text_uc, text_c, condition_latents,
                                    **conditioning)
-        lat, _ = spec.scheduler.step(noise_pred, i, lat)
+        if multistep:
+            lat, _, state = sched.step(noise_pred, i, lat, state, **noise_kw)
+        else:
+            lat, _ = sched.step(noise_pred, i, lat, **noise_kw)
     return lat
 
 

@@ -18,14 +18,20 @@ IP-Adapter (its ``image_proj`` into the ImageProjModel, its numbered
 the PoseGuider, built only when its slot is set. ``strict=True`` refuses a
 set path that is missing and a module with a checkpoint of which some key
 came from no file: the UNet's keys are checked against the union of what
-the unet, sd_base and ip_adapter files wrote.
+the unet, sd_base and ip_adapter files wrote. Last come the adapters, in
+the JAX loader's order: each textual-inversion file appends its rows to
+the token table and binds its trigger (``path`` or ``path:trigger``, the
+file's stem by default), then each LoRA (``path`` or ``path:scale``), the
+LCM-LoRA last at ``lcm_lora_scale``, fuses into the UNet and the text
+encoder. A missing adapter file raises ``FileNotFoundError`` (the JAX
+loader logs it and goes on without it).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Set, Union
+from typing import Dict, List, Optional, Set, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,9 +44,15 @@ from ..models.common import GroupNorm, LayerNorm
 from ..models.controlnet import ControlNet, ControlNetConfig, PoseGuider
 from ..models.ip_adapter import ImageProjModel
 from ..models.ldm_convert import is_ldm_checkpoint, split_ldm_checkpoint
+from ..models.lora import fuse_lora
 from ..models.referencenet import ReferenceNet2D
 from ..models.unet3d import UNet3D
 from ..models.vae import AutoencoderKL
+from ..utils.textual_inversion import (
+    InversionTokenizer,
+    add_textual_inversion,
+    load_inversion_state_dict,
+)
 from ..utils.tokenizer import get_tokenizer
 from .pipeline import MusevModels
 
@@ -50,12 +62,7 @@ logger = logging.getLogger(__name__)
 SLOTS = ("unet", "sd_base", "vae", "text", "referencenet", "clip_vision", "ip_adapter",
          "controlnet", "pose_guider")
 # preset fields whose branch is not ported yet: (field, what, ROADMAP queue 1 item)
-NOT_PORTED_SLOTS = (
-    ("ip_adapter_face_checkpoint", "the FaceID IP-Adapter", 9),
-    ("lora_checkpoints", "LoRA", 11),
-    ("textual_inversion_checkpoints", "textual inversion", 11),
-    ("lcm_lora_checkpoint", "LCM-LoRA", 11),
-)
+NOT_PORTED_SLOTS = (("ip_adapter_face_checkpoint", "the FaceID IP-Adapter", 9),)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -157,6 +164,7 @@ def build_models(
     device = resolve_device(device)
     dtype = resolve_dtype(device, dtype)
     paths = _checkpoint_paths(preset, strict)
+    adapters = _adapter_specs(preset)
     # float32 runs stay full float32, as the JAX reference's matmuls are
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -198,8 +206,88 @@ def build_models(
                     f"{preset.name} preset unwritten (naming drift or wrong file?): "
                     + ", ".join(missing[:8]) + (" ..." if len(missing) > 8 else "")
                 )
-    return MusevModels(tokenizer=get_tokenizer(preset.tokenizer_path, preset.text_cfg.vocab_size),
-                       **modules)
+    tokenizer = get_tokenizer(preset.tokenizer_path, preset.text_cfg.vocab_size)
+    tokenizer = _load_adapters(*adapters, modules, tokenizer)
+    return MusevModels(tokenizer=tokenizer, **modules)
+
+
+def _adapter_specs(preset: ModelPreset) -> Tuple[List[Tuple[str, str]], List[Tuple[str, float]]]:
+    """The preset's textual inversions as (path, trigger) and its LoRAs as
+    (path, scale), the LCM-LoRA last at ``lcm_lora_scale`` (JAX
+    loader.py:361-406); raises ``FileNotFoundError`` for a file that does
+    not exist, and ``ValueError`` for a malformed scale."""
+    def existing(path: str, what: str) -> str:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{what} {path!r} does not exist: the clip would silently "
+                                    "run without it")
+        return path
+
+    inversions = []
+    for spec in preset.textual_inversion_checkpoints or []:
+        path, trigger = _split_path_arg(spec)
+        existing(path, "textual inversion")
+        inversions.append((path, trigger or os.path.splitext(os.path.basename(path))[0]))
+    entries = list(preset.lora_checkpoints or [])
+    if preset.lcm_lora_checkpoint:
+        entries.append(f"{preset.lcm_lora_checkpoint}:{preset.lcm_lora_scale}")
+    loras = []
+    for spec in entries:
+        path, suffix = _split_path_arg(spec)
+        loras.append((existing(path, "LoRA"), _parse_scale(suffix, spec)))
+    return inversions, loras
+
+
+def _load_adapters(inversions, loras, modules: Dict[str, nn.Module], tokenizer):
+    """Textual inversions, then LoRAs, into ``modules`` in place; returns
+    the tokenizer, wrapped when a textual inversion binds a trigger."""
+    # negative embeddings appended to the token table so the V2/V4 negative
+    # prompts' triggers bind (predictor.py:248-254 loads four by default)
+    if inversions:
+        tokenizer = InversionTokenizer(tokenizer)
+    for path, trigger in inversions:
+        emb = load_inversion_state_dict(sd_weights.load_checkpoint(path))
+        add_textual_inversion(modules["text_encoder"], tokenizer, trigger, emb)
+        logger.info("textual inversion %r: %d vectors", trigger, emb.shape[0])
+    # LoRA fuse-at-load with per-entry scale (model_util.py:108-263)
+    for path, scale in loras:
+        n, unmatched = fuse_lora(modules["unet"], sd_weights.load_checkpoint(path), scale=scale,
+                                 text_encoder=modules["text_encoder"])
+        logger.info("lora %s: %d modules fused (scale %.3g), %d unmatched", path, n, scale,
+                    len(unmatched))
+    return tokenizer
+
+
+def _split_path_arg(spec: str):
+    """Parse 'path', 'path:suffix' or 'path=suffix' -> (path, suffix).
+
+    '=' is the unambiguous form (paths may contain ':'); for ':' the split is
+    rejected in favour of the whole spec when the whole spec names an
+    existing file and the head does not (a path with a ':' in it).
+    """
+    if "=" in spec:
+        path, suffix = spec.rsplit("=", 1)
+        return path, suffix
+    if ":" in spec:
+        path, suffix = spec.rsplit(":", 1)
+        if os.path.exists(spec) and not os.path.exists(path):
+            return spec, None
+        return path, suffix
+    return spec, None
+
+
+def _parse_scale(suffix, spec: str) -> float:
+    """The scale suffix of a 'path:scale' spec, with an actionable error."""
+    if suffix is None:
+        return 1.0
+    try:
+        return float(suffix)
+    except ValueError:
+        raise ValueError(
+            f"malformed LoRA spec {spec!r}: expected 'path', 'path:scale' or "
+            f"'path=scale' with a numeric scale, got suffix {suffix!r}. "
+            "If the checkpoint path itself contains ':', use the '=' form: "
+            "'/my:path/lora.safetensors=0.8'."
+        ) from None
 
 
 def _load_checkpoints(preset: ModelPreset, modules: Dict[str, nn.Module],

@@ -14,25 +14,32 @@ taken from the condition image by default. ``video2video`` (Pose2Video and
 Video2Video) runs a shot loop over the windows of a source video, each
 window's control maps driving the ControlNet and PoseGuider of the
 ``musev_referencenet_pose`` preset, with the img2img ``video_strength``
-start. Not ported yet (raise NotImplementedError): FaceID inputs and
-text2video's control images, image-prompt-only text, condition-image
-redraw, serial-denoise carries, per-step latents, histogram matching, CFG
-rescale, LoRA, textual inversion and LCM.
+start. Every sampler family of the JAX package runs (the pipeline's
+``scheduler_name``), its noise drawn from the run's seeded CPU generator;
+the adapters fuse into the models in place: LoRA (``load_lora``,
+``unload_lora``), textual-inversion embeddings (``load_textual_inversion``)
+and LCM (``enable_lcm``, with an LCM-LoRA). Not ported yet (raise
+NotImplementedError): FaceID inputs and text2video's control images,
+image-prompt-only text, condition-image redraw, serial-denoise carries,
+per-step latents, histogram matching and CFG rescale.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..models.clip_text import CLIPTextModel, clip_text_encode
 from ..io.video import PrefetchingWindows
+from ..models import sd_weights
+from ..models.clip_text import CLIPTextModel, clip_text_encode
 from ..models.clip_vision import CLIPVisionModel, clip_vision_encode, preprocess_clip_image
 from ..models.controlnet import ControlNet, PoseGuider
 from ..models.ip_adapter import ImageProjModel
+from ..models.lora import fuse_lora
 from ..models.referencenet import ReferenceNet2D, referencenet_apply
 from ..models.unet3d import UNet3D
 from ..models.vae import AutoencoderKL, vae_decode_video, vae_encode_video
@@ -41,6 +48,11 @@ from ..ops.guidance import guidance_schedule
 from ..ops.noise import make_noise
 from ..schedulers import ScheduleConfig, create_scheduler
 from ..utils.text_emb import encode_weighted_prompt
+from ..utils.textual_inversion import (
+    InversionTokenizer,
+    add_textual_inversion,
+    load_inversion_state_dict,
+)
 from ..utils.tokenizer import Tokenizer
 from .denoiser import DenoiseSpec, denoise_loop, splice_condition_frames
 
@@ -169,10 +181,57 @@ def _source_windows(video_frames, time_size: int, b: int) -> Tuple[Iterator, Tup
 
 class MusevPipeline:
     def __init__(self, models: MusevModels, scheduler_config: ScheduleConfig = ScheduleConfig(),
-                 scheduler_name: str = "euler"):
+                 scheduler_name: str = "euler", scheduler_kwargs: Optional[dict] = None):
+        """``scheduler_kwargs`` go to the sampler family's ``create`` (e.g.
+        Euler's ``s_churn``, DDIM's ``eta``)."""
         self.m = models
         self.scheduler_config = scheduler_config
         self.scheduler_name = scheduler_name
+        self.scheduler_kwargs = dict(scheduler_kwargs or {})
+        self._loras: List[tuple] = []  # (state_dict, scale): the fuse log
+
+    # -- adapters (LoRA / textual inversion / LCM) --------------------------
+
+    def load_lora(self, lora, scale: float = 1.0) -> int:
+        """Fuse a kohya / peft / attn-procs LoRA (a path or a state dict) into
+        the UNet and text encoder by weight delta, logged for ``unload_lora``
+        (predictor.py:311-327, model_util.py:108-263). Returns the modules fused."""
+        if isinstance(lora, str):
+            lora = sd_weights.load_checkpoint(lora)
+        n, _ = fuse_lora(self.m.unet, lora, scale=scale, text_encoder=self.m.text_encoder)
+        self._loras.append((lora, scale))
+        return n
+
+    def unload_lora(self) -> None:
+        """Subtract every LoRA this pipeline fused, last first (reference
+        unload_lora, model_util.py:468). In bf16 the weights come back
+        within a rounding of each add and subtract, not bit for bit."""
+        for lora, scale in reversed(self._loras):
+            fuse_lora(self.m.unet, lora, scale=-scale, text_encoder=self.m.text_encoder)
+        self._loras.clear()
+
+    def load_textual_inversion(self, source, trigger: Optional[str] = None) -> None:
+        """Append a learned embedding (a path, or an (n, hidden) array with
+        ``trigger``) to the token table and bind its trigger word, by
+        default the file's stem (predictor.py:248-254)."""
+        if isinstance(source, str):
+            if trigger is None:
+                trigger = os.path.splitext(os.path.basename(source))[0]
+            emb = load_inversion_state_dict(sd_weights.load_checkpoint(source))
+        else:
+            emb = torch.as_tensor(source)
+        if trigger is None:
+            raise ValueError("trigger required when passing a raw embedding")
+        if not isinstance(self.m.tokenizer, InversionTokenizer):
+            self.m.tokenizer = InversionTokenizer(self.m.tokenizer)
+        add_textual_inversion(self.m.text_encoder, self.m.tokenizer, trigger, emb)
+
+    def enable_lcm(self, lcm_lora=None, scale: float = 1.0) -> None:
+        """Switch to the LCM sampler, fusing an LCM-LoRA first when given
+        (predictor.py:296-306)."""
+        if lcm_lora is not None:
+            self.load_lora(lcm_lora, scale=scale)
+        self.scheduler_name = "lcm"
 
     # -- encoders ----------------------------------------------------------
 
@@ -205,8 +264,8 @@ class MusevPipeline:
     def _make_spec(self, num_steps: int, time_size: int, context_frames: int,
                    context_overlap: int, context_schedule: str, guidance_start: float,
                    guidance_end: Optional[float], guidance_method: str,
-                   n_vision_cond: int, motion_speed: float,
-                   ip_adapter_scale: float = 1.0) -> DenoiseSpec:
+                   n_vision_cond: int, w_ind_noise: float, noise_type: str,
+                   motion_speed: float, ip_adapter_scale: float = 1.0) -> DenoiseSpec:
         ctx = min(context_frames, time_size)
         if context_schedule == "uniform":
             plan = make_stacked_window_plan(num_steps, time_size, ctx,
@@ -218,12 +277,14 @@ class MusevPipeline:
         return DenoiseSpec(
             unet_cfg=self.m.unet.cfg,
             scheduler=create_scheduler(self.scheduler_name, num_steps,
-                                       config=self.scheduler_config),
+                                       config=self.scheduler_config, **self.scheduler_kwargs),
             plan=plan,
             guidance=guidance_schedule(guidance_start, num_steps, stop=guidance_end,
                                        method=guidance_method),
             n_vision_cond=n_vision_cond,
             do_cfg=True,
+            w_ind_noise=w_ind_noise,
+            noise_type=noise_type,
             motion_speed=motion_speed,
             ip_adapter_scale=ip_adapter_scale,
         )
@@ -239,14 +300,14 @@ class MusevPipeline:
         scale = self.m.vae.cfg.downscale
         spec = dataclasses.replace(
             self._make_spec(num_inference_steps, 1, 1, 0, "uniform_v2", guidance_scale,
-                            None, "linear", 0, 8.0),
+                            None, "linear", 0, w_ind_noise, noise_type, 8.0),
             skip_temporal=True,
         )
         shape = (text_c.shape[0], 1, height // scale, width // scale,
                  self.m.unet.cfg.in_channels)
         latents = make_noise(generator, shape, noise_type=noise_type, w_ind_noise=w_ind_noise,
                              device=self.m.device) * spec.scheduler.init_noise_sigma
-        return denoise_loop(self.m.unet, spec, latents, text_uc, text_c)
+        return denoise_loop(self.m.unet, spec, latents, text_uc, text_c, generator=generator)
 
     def _condition_latents(
         self, condition_images: Optional[np.ndarray], n_vc: int, text_c: torch.Tensor,
@@ -372,8 +433,8 @@ class MusevPipeline:
         spec = self._make_spec(
             video_num_inference_steps, video_length, context_frames, context_overlap,
             context_schedule, video_guidance_scale, video_guidance_scale_end,
-            video_guidance_scale_method, n_vision_condition, motion_speed,
-            ip_adapter_scale=ip_adapter_scale,
+            video_guidance_scale_method, n_vision_condition, w_ind_noise, noise_type,
+            motion_speed, ip_adapter_scale=ip_adapter_scale,
         )
         if refer_image is None and condition_images is not None:
             refer_image = np.asarray(condition_images)[:, 0]
@@ -390,7 +451,7 @@ class MusevPipeline:
                 noise = img_weight**0.5 * cond_mean + (1.0 - img_weight) ** 0.5 * noise
             latents = noise * spec.scheduler.init_noise_sigma
             out = denoise_loop(self.m.unet, spec, latents, text_uc, text_c,
-                               condition_latents=condition_latents, **refer_cond)
+                               condition_latents=condition_latents, generator=gen, **refer_cond)
             full = splice_condition_frames(out, condition_latents, n_vision_condition)
             all_latents.append(full if i_batch == 0 else full[:, n_vision_condition:])
             if n_vision_condition > 0 and not fix_condition_images:
@@ -471,8 +532,8 @@ class MusevPipeline:
                 )
             spec = self._make_spec(
                 video_num_inference_steps, t_window, context_frames, context_overlap,
-                context_schedule, video_guidance_scale, None, "linear", n_vc, motion_speed,
-                ip_adapter_scale=ip_adapter_scale,
+                context_schedule, video_guidance_scale, None, "linear", n_vc, w_ind_noise,
+                noise_type, motion_speed, ip_adapter_scale=ip_adapter_scale,
             )
             return dataclasses.replace(spec, **extra)
 
@@ -520,7 +581,7 @@ class MusevPipeline:
                 maps = np.concatenate([last_control, control], axis=1) if n_vc else control
                 ctrl = torch.as_tensor(maps, dtype=torch.float32, device=self.m.device) / 255.0
             out = denoise_loop(self.m.unet, spec_w, latents, text_uc, text_c,
-                               condition_latents=condition_latents,
+                               condition_latents=condition_latents, generator=gen,
                                controlnet=self.m.controlnet, control_images=ctrl,
                                pose_guider=self.m.pose_guider, **refer_cond)
             full = splice_condition_frames(out, condition_latents, n_vc)

@@ -1,11 +1,22 @@
-from typing import Optional
+from typing import Optional, Union
 
+from .ancestral import DDIMScheduler, DDPMScheduler, EulerAncestralScheduler
 from .base import ScheduleConfig
+from .dpm_multistep import DPMSolverMultistepScheduler
 from .euler_discrete import EulerDiscreteScheduler
+from .lcm import LCMScheduler
 
-_SCHEDULERS = {"euler": EulerDiscreteScheduler}
-# sampler families of the JAX package that the port does not have yet
-_NOT_PORTED = ("euler_ancestral", "ddim", "ddpm", "lcm", "dpmpp_2m")
+Scheduler = Union[EulerDiscreteScheduler, EulerAncestralScheduler, DDIMScheduler,
+                  DDPMScheduler, LCMScheduler, DPMSolverMultistepScheduler]
+
+_SCHEDULERS = {
+    "euler": EulerDiscreteScheduler,
+    "euler_ancestral": EulerAncestralScheduler,
+    "ddim": DDIMScheduler,
+    "ddpm": DDPMScheduler,
+    "lcm": LCMScheduler,
+    "dpmpp_2m": DPMSolverMultistepScheduler,
+}
 
 
 def create_scheduler(
@@ -13,12 +24,26 @@ def create_scheduler(
     num_inference_steps: int,
     config: Optional[ScheduleConfig] = None,
     **kw,
-):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"scheduler {name!r} is not ported to musev_torch yet")
-    if name not in _SCHEDULERS:
-        raise ValueError(f"unknown scheduler {name!r}; choose from {sorted(_SCHEDULERS)}")
-    return _SCHEDULERS[name].create(num_inference_steps, config=config, **kw)
+) -> Scheduler:
+    """Factory over the six sampler families of the reference
+    (musev/schedulers/, SURVEY §2.5); ``kw`` goes to the family's ``create``."""
+    try:
+        cls = _SCHEDULERS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown scheduler {name!r}; choose from {sorted(_SCHEDULERS)}"
+        ) from None
+    return cls.create(num_inference_steps, config=config, **kw)
 
 
-__all__ = ["ScheduleConfig", "EulerDiscreteScheduler", "create_scheduler"]
+__all__ = [
+    "ScheduleConfig",
+    "Scheduler",
+    "EulerDiscreteScheduler",
+    "EulerAncestralScheduler",
+    "DDIMScheduler",
+    "DDPMScheduler",
+    "LCMScheduler",
+    "DPMSolverMultistepScheduler",
+    "create_scheduler",
+]

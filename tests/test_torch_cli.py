@@ -154,25 +154,25 @@ def test_video2video_cli_on_a_pose_video(tmp_path, captured):
     np.testing.assert_array_equal(got, (res.videos[0] * 255).astype(np.uint8))
 
 
+# (the case's position in the list before the adapter flags and --scheduler
+# were ported: the test ids keep it, cli, flags, what the error names)
+_REFUSED = [
+    (0, t2v, ["--parallel", "fp"], "item 15"),
+    (5, t2v, ["--face_det_onnx", "det.onnx", "--face_rec_onnx", "rec.onnx"], "item 12"),
+    (6, t2v, ["--face_rec_onnx", "rec.onnx"], "item 12"),
+    (7, t2v, ["--ip_adapter_face_checkpoint", "face.bin"], "item 9"),
+    (9, v2v, ["--processor_onnx", "depth=midas.onnx"], "item 12"),
+    (10, v2v, ["--dwpose_det_onnx", "det.onnx", "--dwpose_pose_onnx", "pose.onnx"], "item 12"),
+    (11, v2v, ["--sam_encoder_onnx", "enc.onnx", "--sam_decoder_onnx", "dec.onnx"], "item 12"),
+    (12, v2v, ["--face_detector_onnx", "face.onnx"], "item 12"),
+    (13, v2v, ["--controlnet_name", "dwpose_body_hand"], "item 12"),
+    (14, v2v, ["--parallel", "dp"], "item 15"),
+]
+
+
 @pytest.mark.parametrize("cli,flags,match", [
-    (t2v, ["--parallel", "fp"], "item 15"),
-    (t2v, ["--lora_path", "style.safetensors:0.5"], "item 11"),
-    (t2v, ["--textual_inversion", "badhandv4.pt"], "item 11"),
-    (t2v, ["--lcm_lora_path", "lcm.safetensors"], "item 11"),
-    (t2v, ["--lcm"], "item 11"),
-    (t2v, ["--face_det_onnx", "det.onnx", "--face_rec_onnx", "rec.onnx"], "item 12"),
-    (t2v, ["--face_rec_onnx", "rec.onnx"], "item 12"),
-    (t2v, ["--ip_adapter_face_checkpoint", "face.bin"], "item 9"),
-    (t2v, ["--scheduler", "ddim"], "ddim"),
-    (v2v, ["--processor_onnx", "depth=midas.onnx"], "item 12"),
-    (v2v, ["--dwpose_det_onnx", "det.onnx", "--dwpose_pose_onnx", "pose.onnx"], "item 12"),
-    (v2v, ["--sam_encoder_onnx", "enc.onnx", "--sam_decoder_onnx", "dec.onnx"], "item 12"),
-    (v2v, ["--face_detector_onnx", "face.onnx"], "item 12"),
-    (v2v, ["--controlnet_name", "dwpose_body_hand"], "item 12"),
-    (v2v, ["--parallel", "dp"], "item 15"),
-    (v2v, ["--lora_path", "style.safetensors"], "item 11"),
-    (v2v, ["--lcm"], "item 11"),
-])
+    pytest.param(cli, flags, match, id=f"{cli.__name__}-flags{i}-{match}")
+    for i, cli, flags, match in _REFUSED])
 def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli, flags, match):
     def built(*a, **k):
         raise AssertionError("models were built")
@@ -181,3 +181,97 @@ def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli,
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", *flags])
+
+
+@pytest.fixture(scope="module")
+def adapter_files(tmp_path_factory):
+    """A kohya LoRA over two UNet attention projections and a CLIP MLP, an
+    LCM-LoRA over the same UNet sites, and a 2-vector embedding, at the
+    tiny preset's shapes."""
+    d = tmp_path_factory.mktemp("adapters")
+    preset = t2v._shrink_preset(get_model_preset("musev"))
+    shapes = {
+        "lora_unet_down_blocks_0_attentions_0_transformer_blocks_0_attn1_to_q": (16, 16),
+        "lora_unet_mid_block_attentions_0_transformer_blocks_0_attn2_to_v": (32, 32),
+        "lora_te_text_model_encoder_layers_0_mlp_fc1": (64, 32),
+    }
+    rng = np.random.default_rng(0)
+    paths = {}
+    for name, keys in (("style", shapes), ("lcm", list(shapes)[:2])):
+        sd = {}
+        for key in keys:
+            out, inn = shapes[key]
+            sd[f"{key}.lora_down.weight"] = torch.from_numpy(
+                rng.standard_normal((4, inn), dtype=np.float32))
+            sd[f"{key}.lora_up.weight"] = torch.from_numpy(
+                rng.standard_normal((out, 4), dtype=np.float32) * 0.1)
+        paths[name] = str(d / f"{name}.safetensors")
+        stt.save_file(sd, paths[name])
+    paths["emb"] = str(d / "badhandv4.safetensors")
+    stt.save_file({"emb_params": torch.from_numpy(rng.standard_normal(
+        (2, preset.text_cfg.hidden_size), dtype=np.float32))}, paths["emb"])
+    return paths
+
+
+# (cli, flags with {file} placeholders, the scheduler, the adapters as
+# pipeline calls: ("lora", file, scale) / ("ti", file) / ("lcm", file))
+_WORKING = [
+    (t2v, ["--lora_path", "{style}:0.5"], "euler", [("lora", "style", 0.5)]),
+    (t2v, ["--textual_inversion", "{emb}"], "euler", [("ti", "emb")]),
+    (t2v, ["--lcm_lora_path", "{lcm}"], "lcm", [("lcm", "lcm")]),
+    (t2v, ["--lcm"], "lcm", []),
+    (t2v, ["--scheduler", "ddim"], "ddim", []),
+    (v2v, ["--lora_path", "{style}"], "euler", [("lora", "style", 1.0)]),
+    (v2v, ["--lcm"], "lcm", []),
+]
+
+
+@pytest.mark.parametrize("cli,flags,scheduler,adapters", _WORKING,
+                         ids=[f"{c.__name__.split('.')[-1]}-{' '.join(f)}" for c, f, _, _ in _WORKING])
+def test_adapter_and_scheduler_flags_reach_the_pipeline(monkeypatch, tmp_path, adapter_files,
+                                                        captured, cli, flags, scheduler, adapters):
+    """The CLI's pipeline has the scheduler and weights of ``MusevPipeline``
+    given the same adapters by its own methods on the same seed's models;
+    the text2video CLI's clip equals that pipeline's (the video2video CLI's
+    task has no video, so it builds the models and writes nothing)."""
+    made = []
+    real_init = MusevPipeline.__init__
+
+    def record(self, *a, **k):
+        real_init(self, *a, **k)
+        made.append(self)
+
+    monkeypatch.setattr(MusevPipeline, "__init__", record)
+    (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat walking\n")
+    argv = ["--test_data_path", str(tmp_path / "tasks.csv"), "--output_dir", str(tmp_path / "out"),
+            "--negative_prompt", "V3", "--height", "64", "--width", "64", *TINY_RUN,
+            *[f.format(**adapter_files) for f in flags]]
+    if cli is v2v:
+        argv += ["--video_is_middle", "--controlnet_name", "none"]
+    written = cli.main(argv)
+    (pipe,) = made
+    assert pipe.scheduler_name == scheduler
+
+    model = "musev" if cli is t2v else "musev_referencenet_pose"
+    want = MusevPipeline(build_models(t2v._shrink_preset(get_model_preset(model)), device="cpu"))
+    for kind, name, *scale in adapters:
+        if kind == "lora":
+            want.load_lora(adapter_files[name], *scale)
+        elif kind == "ti":
+            want.load_textual_inversion(adapter_files[name])
+        else:
+            want.enable_lcm(adapter_files[name])
+    want.scheduler_name = scheduler
+    for module in ("unet", "text_encoder"):
+        ref = getattr(want.m, module).state_dict()
+        for k, v in getattr(pipe.m, module).state_dict().items():
+            assert torch.equal(v, ref[k]), k
+    negative = resolve_negative_prompt("V3")
+    assert pipe.m.tokenizer.encode(negative) == want.m.tokenizer.encode(negative)
+    if cli is v2v:
+        assert written == []
+        return
+    res = want.text2video("a cat walking", negative, height=64, width=64, video_length=4,
+                          context_frames=4, context_overlap=0, num_inference_steps=2,
+                          video_num_inference_steps=2, seed=5)
+    np.testing.assert_array_equal(captured[written[0]], (res.videos[0] * 255).astype(np.uint8))

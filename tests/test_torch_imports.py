@@ -30,6 +30,9 @@ sys.meta_path.insert(0, Refuse())
 import musev_torch
 
 names = sorted(m.name for m in pkgutil.walk_packages(musev_torch.__path__, "musev_torch."))
+assert {"musev_torch.schedulers.ancestral", "musev_torch.schedulers.lcm",
+        "musev_torch.schedulers.dpm_multistep", "musev_torch.models.lora",
+        "musev_torch.utils.textual_inversion"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
@@ -48,5 +51,5 @@ def test_port_imports_without_jax_or_optional_packages(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, loaded = out.stdout.split(" ", 1)
-    assert int(n) >= 40
+    assert int(n) >= 54
     assert "'prompt': 'a cat walking'" in loaded

@@ -246,9 +246,6 @@ def test_missing_path_raises_under_strict_and_warns_otherwise(ckpt_set, caplog):
 @pytest.mark.parametrize("field,value,item", [
     ("ip_adapter_face_checkpoint", "face.bin", "item 9"),
     ("ip_adapter_model_name", "IPAdapterPlus", "item 9"),
-    ("lora_checkpoints", ["style.safetensors:0.5"], "item 11"),
-    ("textual_inversion_checkpoints", ["badhandv4.safetensors"], "item 11"),
-    ("lcm_lora_checkpoint", "lcm.safetensors", "item 11"),
 ])
 def test_unported_slots_raise_before_weights_are_drawn(monkeypatch, field, value, item):
     def drawn(*a, **k):
