@@ -87,7 +87,29 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    beside the call's sensitivity to a 1e-3 perturbation of its input, at
    the path's weights and, for the gate, at weights drawn at N(0, 0.01);
 7. reference: one UNet call of a narrow config on the card against the same
-   weights in float32 on the CPU (the plain path).
+   weights in float32 on the CPU (the plain path);
+8. options, this slice's path, at the default operating point: (a) the
+   ``musev_referencenet_pose`` preset's ``text2video`` with 1 + 24 seeded
+   pose frames through the ControlNet, the seeded condition image redrawn
+   (strength 0.75 of 30 steps), CFG rescale 0.7 and histogram matching:
+   finite, bit for bit on a profiled rerun, moved by zeroed pose frames;
+   (b) ``musev_referencenet`` with ``IPAdapterPlus`` (16 tokens) and FaceID,
+   loaded by ``build_models(strict=True)`` from files the phase writes from
+   a seed-3 donor (the UNet without its IP and face projections, a Plus
+   file with the Resampler at the published shapes, a FaceID file), the
+   loaded tensors bit for bit the donor's, the Resampler and the FaceID
+   MLPProjModel on the card within relative L2 1e-2 of their float32 CPU
+   plain versions, then image-to-video with a seeded (1, 512) face
+   embedding, moved when the embedding is zeroed; (c) ``musev`` serial
+   denoise over 2 shots with the carries of 4 frames and every step's
+   latents, at SERIAL_STEPS video steps: the recordings of the JAX shapes,
+   finite frames; (d) the video2video CLI on the pose preset with
+   ``--record_mid_video --video_overlap 4 --need_hist_match
+   --guidance_rescale 0.7``, its source read from the seeded pose frames
+   in memory (the card's machine has no libav): 25 frames written. Each
+   part reports its clip seconds (for (b)-(d) those of its one profiled
+   run), peak memory, launches by kernel and the device's busy share; its
+   kernels must launch.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last the line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -97,6 +119,7 @@ exits non-zero and prints no result. Details go to
 
 from __future__ import annotations
 
+import copy
 import importlib
 import json
 import os
@@ -124,7 +147,9 @@ PEAK_EXP2 = 3.9e12
 # a fused k|v product (row stride 2*H*D: ReferenceOnly, the ReferenceNet fuse
 # and cross-attention), "q|k|v" three separate linears (the VAE mid-block,
 # the IP-Adapter branch, CLIP vision). The first seven are on both paths, the
-# last four on the musev_referencenet path only.
+# next four on the musev_referencenet path only, the last three on phase
+# options' (IP-Adapter-Plus's 16 tokens and FaceID's at both branches, the
+# published FaceID file's 4, the Resampler's 16 queries over 257 + 16 keys).
 FLASH_SITES = [
     ("L0 ReferenceOnly cond half", "q|kv", 39, 8, 5184, 10368, 40),
     ("L0 self-attn / uncond half", "qkv", 39, 8, 5184, 5184, 40),
@@ -137,6 +162,9 @@ FLASH_SITES = [
     ("L1 ReferenceNet fuse", "q|kv", 78, 8, 1296, 2592, 80),
     ("L0 IP-Adapter branch (4 image tokens)", "q|k|v", 78, 8, 5184, 4, 40),
     ("CLIP vision ViT-H/14", "q|k|v", 1, 16, 257, 257, 80),
+    ("L0 IP-Adapter-Plus / FaceID branch (16 tokens)", "q|k|v", 78, 8, 5184, 16, 40),
+    ("L0 FaceID branch (4 face tokens)", "q|k|v", 78, 8, 5184, 4, 40),
+    ("Resampler (16 queries, 257 + 16 keys)", "q|kv", 1, 12, 16, 273, 64),
 ]
 LONGKV_HEAD = "L0 ReferenceNet fuse"  # the reported site of the long-KV designs
 # (site, N, T, C, heads): temporal rows of 6 window-rows x h x w pixels
@@ -196,6 +224,11 @@ LORA_RANK = 8
 TRIGGER = "badhandv4"
 SAMPLERS = (("euler_ancestral", {}), ("ddim", {}), ("ddpm", {}), ("lcm", {}), ("dpmpp_2m", {}),
             ("euler", {"s_churn": 1.0}))
+# phase options: the serial-denoise part's video steps (cut from 10 to fit
+# the script's time), the carries' overlap, the FaceID embedding width
+SERIAL_STEPS = 5
+OVERLAP = 4
+FACE_ID_DIM = 512
 
 
 def fail(msg: str) -> None:
@@ -1192,6 +1225,298 @@ def phase_split(torch, models) -> dict:
     return record
 
 
+def timed_run(torch, fn):
+    """``fn()`` with the kernels' counts zeroed just before and the peak
+    device memory reset: (result, seconds, launches, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.time() - t0, read_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_clip(res, what: str, need: tuple, launches: dict, shape=None) -> None:
+    """Fails unless the clip has ``shape`` (default the path's), is finite in
+    [0, 1] with finite latents, and every kernel in ``need`` launched."""
+    import numpy as np
+
+    shape = shape or VIDEO_SHAPE
+    vid = res.videos
+    if vid.shape != shape:
+        fail(f"{what} gave shape {vid.shape}, expected {shape}")
+    finite = np.isfinite(vid).all() and np.isfinite(res.latents).all()
+    if not finite or vid.min() < 0.0 or vid.max() > 1.0:
+        fail(f"{what} gave non-finite values or values outside [0, 1]")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"{what} launched {name} no time")
+
+
+def part_record(clip_s, launches, peak_gb, profile, **extra) -> dict:
+    busy = profile.get("device_ms")
+    share = None if busy is None else busy / profile["wall_ms"]
+    return dict(clip_s=clip_s, peak_gb=peak_gb, launches=launches, busy_share=share,
+                profile=profile, **extra)
+
+
+def profiled_part(torch, run, args):
+    """``run(**args)`` once under torch.profiler with the kernels' counts
+    zeroed just before: (result, profile, seconds of the profiled run, not
+    of the profile's tabulation after it, launches, peak GB)."""
+    (profile, res), _, launches, peak_gb = timed_run(torch, lambda: profile_path(torch, run, args))
+    return res, profile, profile["wall_ms"] / 1e3, launches, peak_gb
+
+
+def option_controlnet(torch, image, pose, need) -> dict:
+    """Part (a): ControlNet text2video with the redraw, rescale and
+    histogram matching; bit for bit on the profiled rerun, moved by zeroed
+    pose frames."""
+    import numpy as np
+
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    pipe = MusevPipeline(build_models("musev_referencenet_pose", seed=0))
+    args = dict(T2V_ARGS, condition_images=image, control_images=pose,
+                redraw_condition_image=True, redraw_strength=0.75, guidance_rescale=0.7,
+                need_hist_match=True)
+    res, clip_s, launches, peak_gb = timed_run(torch, lambda: pipe.text2video(**args))
+    check_clip(res, "the ControlNet text2video", need, launches)
+    profile, again = profile_path(torch, pipe.text2video, args)
+    same = bool(np.array_equal(again.latents, res.latents)
+                and np.array_equal(again.videos, res.videos))
+    zeroed = pipe.text2video(**dict(args, control_images=np.zeros_like(pose)))
+    change = float(np.abs(zeroed.latents - res.latents).max())
+    print(f"phase options (a) ControlNet text2video: clip {clip_s:.2f} s, peak {peak_gb:.1f} GB, "
+          f"launches {launches}; rerun bit for bit {same}; zeroed pose frames move the latents "
+          f"by up to {change:.3e}")
+    if not same or not change > 1e-3:
+        fail(f"the ControlNet text2video: rerun bit for bit {same}, zeroed-pose change {change}")
+    del pipe
+    torch.cuda.empty_cache()
+    return part_record(clip_s, launches, peak_gb, profile, rerun_bit_for_bit=same,
+                       zeroed_pose_latent_change=change)
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def option_ip_plus(torch, tmp: Path, image, face_emb, need) -> dict:
+    """Part (b): IP-Adapter-Plus and FaceID from files written from a donor,
+    loaded strictly; the projections against their float32 CPU plain
+    versions; image-to-video with a face embedding (run under the
+    profiler), moved when it is zeroed."""
+    import numpy as np
+
+    from musev_torch.cli.text2video import enable_face
+    from musev_torch.configs.model_registry import get_model_preset
+    from musev_torch.models.clip_vision import clip_vision_encode, preprocess_clip_image
+    from musev_torch.models.sd_weights import ip_adapter_site_paths
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    def preset(**paths):
+        p = get_model_preset("musev_referencenet", ip_adapter_model_name="IPAdapterPlus",
+                             ip_adapter_tokens=16, **paths)
+        enable_face(p, "faceid")
+        return p
+
+    t0 = time.time()
+    donor = build_models(preset(), seed=3)
+    unet_sd = {k: v for k, v in donor.unet.state_dict().items()
+               if not k.endswith(("to_k_ip.weight", "to_v_ip.weight"))}
+    files = dict(unet_checkpoint=tmp / "unet.safetensors",
+                 ip_adapter_checkpoint=tmp / "ip-adapter-plus.bin",
+                 ip_adapter_face_checkpoint=tmp / "ip-adapter-faceid.bin")
+    write_safetensors(files["unet_checkpoint"], unet_sd)
+    state = donor.unet.state_dict()
+    for slot, proj, prefix in (("ip_adapter_checkpoint", donor.ip_proj, ""),
+                               ("ip_adapter_face_checkpoint", donor.ip_face_proj,
+                                "ip_adapter_face_")):
+        numbered = {f"{2 * i + 1}.{name}.weight": state[f"{site}.{prefix}{name}.weight"].cpu()
+                    for i, site in enumerate(ip_adapter_site_paths(donor.unet.cfg))
+                    for name in ("to_k_ip", "to_v_ip")}
+        torch.save({"image_proj": {k: v.cpu() for k, v in proj.state_dict().items()},
+                    "ip_adapter": numbered}, files[slot])
+    write_s = time.time() - t0
+    t1 = time.time()
+    models = build_models(preset(**{k: str(f) for k, f in files.items()}), seed=4, strict=True)
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    wrong, n = [], 0
+    for name in ("unet", "ip_proj", "ip_face_proj"):
+        want = getattr(donor, name).state_dict()
+        for k, v in getattr(models, name).state_dict().items():
+            n += 1
+            if v.dtype != want[k].dtype or not torch.equal(v, want[k]):
+                wrong.append(f"{name}.{k}")
+    del donor, state, unet_sd
+    torch.cuda.empty_cache()
+    shapes = {k: tuple(v.shape) for k, v in models.ip_proj.state_dict().items()
+              if k in ("latents", "proj_in.weight", "layers.0.0.to_kv.weight")}
+    print(f"phase options (b): files written in {write_s:.1f} s, loaded strictly in {load_s:.1f} "
+          f"s; {n} loaded tensors checked bit for bit against the donor's, {len(wrong)} differ"
+          f"{': ' + ', '.join(wrong[:5]) if wrong else ''}; Resampler {models.ip_proj.cfg}, "
+          f"shapes {shapes}")
+    if wrong:
+        fail(f"the loaded IP-Adapter-Plus / FaceID weights differ at {len(wrong)} tensors")
+
+    # the projections on the card against their float32 CPU plain versions
+    with torch.inference_mode():
+        pixels = preprocess_clip_image(torch.as_tensor(image[:, 0], device=models.device),
+                                       models.clip_vision.cfg.image_size)
+        tokens, _ = clip_vision_encode(models.clip_vision, pixels.to(models.dtype),
+                                       penultimate=True)
+        emb = torch.as_tensor(face_emb, device=models.device, dtype=models.dtype)
+        errs = {}
+        for name, module, x in (("resampler", models.ip_proj, tokens),
+                                ("mlp_proj", models.ip_face_proj, emb)):
+            plain = copy.deepcopy(module).to("cpu", torch.float32)
+            errs[name] = rel_l2(torch, module(x), plain(x.float().cpu()))
+    print(f"phase options (b): on the card against float32 on the CPU, relative L2 {errs} "
+          f"(tol 1e-2)")
+    if not all(e <= 1e-2 for e in errs.values()):
+        fail(f"the Resampler or the FaceID projection disagrees with its plain version: {errs}")
+
+    pipe = MusevPipeline(models)
+    args = dict(T2V_ARGS, condition_images=image, face_emb=face_emb)
+    res, profile, clip_s, launches, peak_gb = profiled_part(torch, pipe.text2video, args)
+    check_clip(res, "the IP-Adapter-Plus + FaceID clip", need, launches)
+    zeroed = pipe.text2video(**dict(args, face_emb=np.zeros_like(face_emb)))
+    change = float(np.abs(zeroed.latents - res.latents).max())
+    print(f"phase options (b) IP-Adapter-Plus + FaceID image-to-video: clip {clip_s:.2f} s "
+          f"(profiled), "
+          f"peak {peak_gb:.1f} GB, launches {launches}; a zeroed face embedding moves the "
+          f"latents by up to {change:.3e}")
+    if not change > 1e-3:
+        fail("zeroing the face embedding left the clip unchanged")
+    del pipe, models
+    torch.cuda.empty_cache()
+    return part_record(clip_s, launches, peak_gb, profile, write_files_s=write_s,
+                       load_strict_s=load_s, tensors_bit_for_bit=n, plain_rel_l2=errs,
+                       zeroed_face_latent_change=change)
+
+
+def option_serial(torch, need) -> dict:
+    """Part (c): ``musev`` serial denoise over 2 shots with the carries and
+    every step's latents, at SERIAL_STEPS video steps, run once under the
+    profiler."""
+    import numpy as np
+
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+
+    pipe = MusevPipeline(build_models("musev", seed=0))
+    args = dict(T2V_ARGS, n_batch=2, video_num_inference_steps=SERIAL_STEPS,
+                record_mid_video=True, video_overlap=OVERLAP, need_middle_latents=True)
+    res, profile, clip_s, launches, peak_gb = profiled_part(torch, pipe.text2video, args)
+    frames = 2 * T2V_ARGS["video_length"]
+    check_clip(res, "the serial-denoise clip", need, launches,
+               shape=(1, frames + 1, *VIDEO_SHAPE[2:]))
+    h = VIDEO_SHAPE[2] // 8
+    carry = (SERIAL_STEPS + 1, 1, OVERLAP, h, h, 4)
+    mid = (SERIAL_STEPS, 1, frames, *VIDEO_SHAPE[2:])
+    got = dict(mid_video_latents=res.mid_video_latents.shape,
+               mid_video_noises=res.mid_video_noises.shape, videos_mid=res.videos_mid.shape)
+    print(f"phase options (c) serial denoise, 2 shots, {SERIAL_STEPS} steps: clip {clip_s:.2f} s "
+          f"(profiled), peak {peak_gb:.1f} GB, launches {launches}, recordings {got}")
+    if got != dict(mid_video_latents=carry, mid_video_noises=carry, videos_mid=mid) or not (
+            np.isfinite(res.videos_mid).all() and np.isfinite(res.mid_video_noises).all()):
+        fail(f"the serial-denoise recordings {got}, expected carries {carry} and mid {mid}")
+    del pipe, res
+    torch.cuda.empty_cache()
+    return part_record(clip_s, launches, peak_gb, profile, steps=SERIAL_STEPS,
+                       recordings={k: list(v) for k, v in got.items()})
+
+
+class FramesReader:
+    """``VideoReader``'s interface over frames in memory (the card's machine
+    has no libav for the native reader)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+        self.num_frames, self.height, self.width = frames.shape[:3]
+
+    def windows(self, time_size: int, overlap: int = 0, sample_rate: int = 1):
+        for lo in range(0, self.num_frames, time_size - overlap):
+            yield self.frames[lo:lo + time_size:sample_rate]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+def option_v2v_cli(torch, tmp: Path, image, pose_frames, need) -> dict:
+    """Part (d): the video2video CLI on the pose preset with the serial
+    denoise, histogram matching and CFG rescale, run once under the
+    profiler; fails unless it wrote 25 frames of 576x576."""
+    import numpy as np
+    from PIL import Image
+
+    import musev_torch.io.video as video_io
+    from musev_torch.cli import video2video as cli
+
+    Image.fromarray(image[0, 0].astype(np.uint8)).save(tmp / "condition.png")
+    (tmp / "v2v.csv").write_text(
+        "name,prompt,video_path,condition_images,refer_image\n"
+        f"pose,{V2V_ARGS['prompt']},in-memory,{tmp / 'condition.png'},{tmp / 'condition.png'}\n")
+    argv = ["--test_data_path", str(tmp / "v2v.csv"), "--output_dir", str(tmp / "v2v_out"),
+            "--model_name", "musev_referencenet_pose", "--video_is_middle",
+            "--record_mid_video", "--video_overlap", str(OVERLAP), "--need_hist_match",
+            "--guidance_rescale", "0.7", "--negative_prompt", V2V_ARGS["negative_prompt"]]
+    real_reader, real_write, kept = video_io.VideoReader, cli.write_frames, []
+
+    def keep(path, frames, fps):  # the frames as the writer gets them
+        kept.append(frames.copy())
+        return real_write(path, frames, fps)
+
+    video_io.VideoReader, cli.write_frames = (lambda path: FramesReader(pose_frames)), keep
+    try:
+        written, profile, cli_s, launches, peak_gb = profiled_part(
+            torch, lambda: cli.main(argv), {})
+    finally:
+        video_io.VideoReader, cli.write_frames = real_reader, real_write
+    if len(written) != 1 or len(kept) != 1:
+        fail(f"the video2video CLI wrote {written}, not one clip")
+    frames = kept[0]
+    print(f"phase options (d) video2video CLI: {cli_s:.2f} s (profiled, models built inside), "
+          f"peak {peak_gb:.1f} GB, launches {launches}, wrote {Path(written[0]).name} frames "
+          f"{frames.shape}")
+    want = (VIDEO_SHAPE[1], *VIDEO_SHAPE[2:])
+    if frames.shape != want:
+        fail(f"the video2video CLI wrote frames {frames.shape}, expected {want}")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the video2video CLI launched {name} no time")
+    return part_record(cli_s, launches, peak_gb, profile, frames=list(frames.shape))
+
+
+def phase_options(torch, tmp: Path, image, pose_frames, need) -> dict:
+    """This slice's path (see the module docstring, phase 8): the four
+    parts' records."""
+    import numpy as np
+
+    t0 = time.time()
+    rng = np.random.default_rng(9)
+    pose = np.concatenate([pose_frames[:1], pose_frames], axis=0)[None]  # 1 + 24 maps
+    face_emb = rng.standard_normal((1, FACE_ID_DIM)).astype(np.float32)
+    parts = {
+        "options: ControlNet text2video": option_controlnet(torch, image, pose, need),
+        "options: IP-Adapter-Plus + FaceID": option_ip_plus(torch, tmp, image, face_emb, need),
+        "options: serial denoise": option_serial(torch, need),
+        "options: video2video CLI": option_v2v_cli(torch, tmp, image, pose_frames, need),
+    }
+    print(f"phase options: {time.time() - t0:.1f} s; " + json.dumps(
+        {k: {f: v[f] for f in ("clip_s", "peak_gb", "busy_share")} for k, v in parts.items()}))
+    return parts
+
+
 def phase_reference(torch):
     """A narrow UNet (head dims 40/80/160, as on the path) on the card in
     bf16 against the same weights on the CPU in float32."""
@@ -1265,13 +1590,17 @@ def main() -> None:
     del models, res
     torch.cuda.empty_cache()
     ref_err = phase_reference(torch)
+    with tempfile.TemporaryDirectory(prefix="_options_phase_", dir=ROOT) as tmp:
+        options = phase_options(torch, Path(tmp), image, pose_frames, need)
+    paths.update(options)
 
-    # launches: this slice's path (the LCM + LoRA + TI clip through the CLI)
-    # for the kernels it runs; the split UNet call for the split-merge route,
+    # launches: this slice's path (phase options' four parts, summed) for
+    # the kernels it runs; the split UNet call for the split-merge route,
     # which no path takes under the default carry
     split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
-    path_counts = dict(paths["adapters"]["launches"],
-                       flash_attention_parts=split_counts["flash_attention_parts"])
+    path_counts = {name: sum(part["launches"][name] for part in options.values())
+                   for name in KERNELS}
+    path_counts["flash_attention_parts"] = split_counts["flash_attention_parts"]
     by_path = {name: dict({p: paths[p]["launches"][name] for p in paths},
                           **{"split UNet call": split_counts[name]})
                for name in KERNELS}

@@ -6,11 +6,12 @@ name are the JAX CLI's, with two differences: ``--device`` (default
 default is the port's own (bfloat16 on CUDA, float32 on the CPU).
 ``--scheduler`` picks any of the six samplers; ``--lcm`` or
 ``--lcm_lora_path`` selects ``lcm``, and the loader fuses ``--lora_path``,
-``--textual_inversion`` and the LCM-LoRA into the models. Flags whose
-branch is not ported yet raise ``NotImplementedError`` before any model is
-built; options that ``MusevPipeline.text2video`` does not take yet raise
-from there. Each task's clip is written as an mp4 when the native video
-library is available, else as PNG frames.
+``--textual_inversion`` and the LCM-LoRA into the models.
+``--ip_adapter_face_checkpoint`` turns on the UNet's FaceID branch, as the
+JAX CLI does. The ONNX face-embedding flags and ``--parallel`` are not
+ported yet and raise ``NotImplementedError`` before any model is built.
+Each task's clip is written as an mp4 when the native video library is
+available, else as PNG frames.
 
 Usage:
   python -m musev_torch.cli.text2video --test_data_path configs/tasks/example.yaml \\
@@ -47,7 +48,7 @@ def parse_args(argv=None):
                         "CLIPVisionModelWithProjection weights)")
     p.add_argument("--ip_adapter_checkpoint", type=str, default=None)
     p.add_argument("--ip_adapter_face_checkpoint", type=str, default=None,
-                   help="not ported yet (ROADMAP queue 1, item 9)")
+                   help="IPAdapterFaceID file; turns on the UNet's FaceID branch")
     p.add_argument("--controlnet_checkpoint", type=str, default=None)
     p.add_argument("--time_size", type=int, default=12)
     p.add_argument("--n_batch", type=int, default=1)
@@ -64,7 +65,7 @@ def parse_args(argv=None):
     p.add_argument("--video_guidance_scale_method", type=str, default="linear")
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--guidance_rescale", type=float, default=0.0,
-                   help="CFG rescale; values other than 0 are not ported yet")
+                   help="CFG rescale (arXiv:2305.08891); 0 is off")
     p.add_argument("--video_num_inference_steps", type=int, default=10)
     p.add_argument("--num_inference_steps", type=int, default=30)
     p.add_argument("--w_ind_noise", type=float, default=0.5)
@@ -92,7 +93,7 @@ def parse_args(argv=None):
     p.add_argument("--face_emb_norm", action="store_true")
     p.add_argument("--need_hist_match", action="store_true")
     p.add_argument("--redraw_condition_image", action="store_true",
-                   help="img2img the condition image first; not ported yet")
+                   help="img2img the condition image first")
     p.add_argument("--redraw_strength", type=float, default=0.75)
     p.add_argument("--fix_condition_images", action="store_true")
     p.add_argument("--overwrite", action="store_true")
@@ -127,9 +128,18 @@ def refuse_unported_flags(args, flags) -> None:
                 f"--{attr} is not ported to musev_torch yet (ROADMAP queue 1, item {item})")
 
 
-# flags that are not preset fields; the preset's unported slot (the FaceID
-# IP-Adapter) is refused by the loader's ``refuse_unported``
+# the flags whose branch is not ported yet
 _NOT_PORTED_FLAGS = (("face_det_onnx", 12), ("face_rec_onnx", 12))
+
+
+def enable_face(preset, face_checkpoint) -> None:
+    """A FaceID checkpoint turns on the UNet's FaceID branch, as the
+    reference does through --ip_adapter_face_model_name (text2video.py
+    :761-776)."""
+    if face_checkpoint and not preset.unet_cfg.need_ip_adapter_face:
+        import dataclasses
+
+        preset.unet_cfg = dataclasses.replace(preset.unet_cfg, need_ip_adapter_face=True)
 
 
 def _torch_dtype(name):
@@ -207,7 +217,7 @@ def main(argv=None) -> List[str]:
     from ..autoprompt import generate_prompts
     from ..configs.model_registry import get_model_preset, resolve_negative_prompt
     from ..configs.tasks import load_tasks
-    from ..pipelines.loader import build_models, refuse_unported
+    from ..pipelines.loader import build_models
     from ..pipelines.pipeline import MusevPipeline
     from ..schedulers import create_scheduler
 
@@ -229,7 +239,7 @@ def main(argv=None) -> List[str]:
         textual_inversion_checkpoints=args.textual_inversion,
         lcm_lora_checkpoint=args.lcm_lora_path,
     )
-    refuse_unported(preset)
+    enable_face(preset, args.ip_adapter_face_checkpoint)
     if args.tiny:
         preset = _shrink_preset(preset)
     tasks = generate_prompts(load_tasks(args.test_data_path))

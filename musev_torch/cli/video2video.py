@@ -92,7 +92,7 @@ def parse_args(argv=None):
     p.add_argument("--need_hist_match", action="store_true")
     p.add_argument("--record_mid_video", action="store_true",
                    help="serial denoise: carry per-step tail latents/noises "
-                        "between windows; not ported yet")
+                        "between windows")
     p.add_argument("--video_overlap", type=int, default=1)
     p.add_argument("--need_video2video", action="store_true")
     p.add_argument("--video_strength", type=float, default=0.8)
@@ -166,7 +166,7 @@ def main(argv=None) -> List[str]:
     from ..configs.tasks import load_tasks
     from ..io.processors import get_processor
     from ..io.video import VideoReader
-    from ..pipelines.loader import build_models, refuse_unported
+    from ..pipelines.loader import build_models
     from ..pipelines.pipeline import MusevPipeline
     from ..schedulers import create_scheduler
 
@@ -189,7 +189,6 @@ def main(argv=None) -> List[str]:
         textual_inversion_checkpoints=args.textual_inversion,
         lcm_lora_checkpoint=args.lcm_lora_path,
     )
-    refuse_unported(preset)
     if args.tiny:
         preset = _shrink_preset(preset)
     tasks = load_tasks(args.test_data_path)

@@ -3,9 +3,7 @@
 Counterpart of ``musev_tpu/configs/model_registry.py`` over the port's
 config classes. A ``ModelPreset`` bundles the architecture configs with the
 checkpoint-path slots a user fills in; every slot of the JAX preset is kept,
-so a task or CLI flag names the same field in both packages. The slots
-whose branch is not ported yet (the FaceID IP-Adapter, IP-Adapter-Plus)
-make ``build_models`` raise.
+so a task or CLI flag names the same field in both packages.
 """
 
 from __future__ import annotations
@@ -34,8 +32,10 @@ class ModelPreset:
     controlnet_cfg: Optional[ControlNetConfig] = None
     ip_adapter_clip_dim: int = 1024
     ip_adapter_tokens: int = 4
-    # "IPAdapter" (pooled embedding -> ImageProjModel); "IPAdapterPlus" and
-    # "IPAdapterPlus-face" (the perceiver Resampler) are not ported yet
+    ip_adapter_face_id_dim: int = 512
+    # "IPAdapter" (pooled embedding -> ImageProjModel) or "IPAdapterPlus" /
+    # "IPAdapterPlus-face" (penultimate patch tokens -> the perceiver
+    # Resampler, ip_adapter_loader.py:95-111)
     ip_adapter_model_name: str = "IPAdapter"
     # checkpoint path slots (filled by the user / task config)
     unet_checkpoint: Optional[str] = None

@@ -94,10 +94,12 @@ class CLIPVisionModel(nn.Module):
 
 
 def clip_vision_encode(
-    model: CLIPVisionModel, pixels: torch.Tensor
+    model: CLIPVisionModel, pixels: torch.Tensor, penultimate: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W, 3) normalized pixels -> (hidden_states (B, 1 + P, D),
-    projected pooled embedding (B, projection_dim))."""
+    projected pooled embedding (B, projection_dim)). ``penultimate``: the
+    hidden states are those that enter the last layer (the IP-Adapter-Plus
+    image tokens); the pooled embedding is the last layer's either way."""
     vm = model.vision_model
     emb = vm.embeddings
     b = pixels.shape[0]
@@ -109,10 +111,13 @@ def clip_vision_encode(
     x = torch.cat([cls, tokens], dim=1)
     x = x + emb.position_embedding.weight[None, : x.shape[1]].to(x.dtype)
     x = vm.pre_layrnorm(x)
-    for layer in vm.encoder.layers:
+    hidden = None
+    for i, layer in enumerate(vm.encoder.layers):
+        if penultimate and i == len(vm.encoder.layers) - 1:
+            hidden = x
         x = layer(x, model.cfg.num_heads)
     pooled = vm.post_layernorm(x[:, 0])
-    return x, model.visual_projection(pooled)
+    return x if hidden is None else hidden, model.visual_projection(pooled)
 
 
 def preprocess_clip_image(images: torch.Tensor, size: int = 224) -> torch.Tensor:

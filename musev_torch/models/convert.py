@@ -52,3 +52,11 @@ def controlnet_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
 
 def pose_guider_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     return _to_torch(sd_weights.export_state_dict(sd_weights.pose_guider_key_map(cfg), params))
+
+
+def resampler_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.resampler_key_map(cfg), params))
+
+
+def mlp_proj_from_jax(params) -> Dict[str, torch.Tensor]:
+    return _to_torch(sd_weights.export_state_dict(sd_weights.mlp_proj_key_map(), params))

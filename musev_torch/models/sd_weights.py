@@ -3,14 +3,18 @@
 The key-map part is a copy of ``musev_tpu/models/sd_weights.py`` (the port
 imports nothing of the JAX package): ``unet3d_key_map``, ``vae_key_map``,
 ``clip_text_key_map``, ``referencenet_key_map``, ``clip_vision_key_map``,
-``image_proj_key_map``, ``controlnet_key_map`` and ``pose_guider_key_map``
+``image_proj_key_map``, ``resampler_key_map``, ``mlp_proj_key_map``,
+``controlnet_key_map`` and ``pose_guider_key_map``
 yield ``(torch_key, tree_path, kind)`` triples, and ``export_state_dict``
 reads a JAX-layout param tree (nested dicts/lists of arrays) through a map
 into torch-layout numpy arrays: HWIO -> OIHW for convolutions (HWIO ->
 (O, I, 1, kH, kW) for an InflatedConv3d), (in, out) -> (out, in) for
 linears, (kT, 1, I, O) -> (O, I, kT, 1, 1) for the temporal conv.
 ``ip_adapter_site_paths`` names the attn2 modules in the numbering of an
-``ip_adapter.bin``.
+``ip_adapter.bin``. The maps the JAX package converts by hand
+(``convert_resampler``, ``convert_mlp_proj``) are written as key maps here,
+and the ReferenceNet's map gains the up blocks that ``need_self_attn_embs``
+builds, which the JAX map lacks.
 
 Checkpoints: ``load_safetensors`` reads the safetensors format itself (no
 ``safetensors`` package needed) through a memory map, and
@@ -21,7 +25,8 @@ module's dtype on its device: the legacy VAE attention names are aliased
 (``_VAE_LEGACY_ALIASES``), a 2-D conv weight (O, I, kH, kW) is lifted into
 an InflatedConv3d (O, I, 1, kH, kW), and a shape that disagrees raises
 naming the tensor and the preset. ``ip_adapter_unet_state_dict`` and
-``image_proj_state_dict`` take an ``ip_adapter.bin`` apart.
+``image_proj_state_dict`` take an ``ip_adapter.bin`` (or a FaceID file)
+apart.
 """
 
 from __future__ import annotations
@@ -40,30 +45,36 @@ Path = Tuple
 KeyEntry = Tuple[str, Path, str]  # torch key prefix (no .weight/.bias), path, kind
 
 
-def _attn_entries(tk: str, path: Path, with_ip: bool = False) -> Iterator[KeyEntry]:
+def _attn_entries(tk: str, path: Path, with_ip: bool = False,
+                  with_face: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.to_q", (*path, "to_q"), "linear"
     yield f"{tk}.to_k", (*path, "to_k"), "linear"
     yield f"{tk}.to_v", (*path, "to_v"), "linear"
     yield f"{tk}.to_out.0", (*path, "to_out"), "linear"
-    if with_ip:  # the IP-Adapter dual-KV projections (the FaceID pair is not ported)
+    if with_ip:  # the IP-Adapter dual-KV projections
         yield f"{tk}.to_k_ip", (*path, "to_k_ip"), "linear"
         yield f"{tk}.to_v_ip", (*path, "to_v_ip"), "linear"
+    if with_face:  # the FaceID pair
+        yield f"{tk}.ip_adapter_face_to_k_ip", (*path, "to_k_ip_face"), "linear"
+        yield f"{tk}.ip_adapter_face_to_v_ip", (*path, "to_v_ip_face"), "linear"
 
 
-def _tf_block_entries(tk: str, path: Path, ip: bool = False) -> Iterator[KeyEntry]:
+def _tf_block_entries(tk: str, path: Path, ip: bool = False,
+                      face: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.norm1", (*path, "norm1"), "norm"
     yield from _attn_entries(f"{tk}.attn1", (*path, "attn1"))
     yield f"{tk}.norm2", (*path, "norm2"), "norm"
-    yield from _attn_entries(f"{tk}.attn2", (*path, "attn2"), with_ip=ip)
+    yield from _attn_entries(f"{tk}.attn2", (*path, "attn2"), with_ip=ip, with_face=face)
     yield f"{tk}.norm3", (*path, "norm3"), "norm"
     yield f"{tk}.ff.net.0.proj", (*path, "ff", "proj_in"), "linear"
     yield f"{tk}.ff.net.2", (*path, "ff", "proj_out"), "linear"
 
 
-def _spatial_attn_entries(tk: str, path: Path, ip: bool = False) -> Iterator[KeyEntry]:
+def _spatial_attn_entries(tk: str, path: Path, ip: bool = False,
+                          face: bool = False) -> Iterator[KeyEntry]:
     yield f"{tk}.norm", (*path, "norm"), "norm"
     yield f"{tk}.proj_in", (*path, "proj_in"), "conv2d"
-    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"), ip)
+    yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"), ip, face)
     yield f"{tk}.proj_out", (*path, "proj_out"), "conv2d"
 
 
@@ -97,8 +108,8 @@ def _resnet_entries(tk: str, path: Path, temb: bool = True) -> Iterator[KeyEntry
 
 
 def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
-    """Keys of the UNet3D sites this port builds (the ReferenceNet fuse and
-    IP-Adapter projections included; no FaceID pair)."""
+    """Keys of the UNet3D sites this port builds (the ReferenceNet fuse, the
+    IP-Adapter and FaceID projections included)."""
     yield "conv_in", ("conv_in",), "conv2d"
     yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
     yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
@@ -107,7 +118,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
         yield "frame_embedding.linear_2", ("frame_embedding", "linear_2"), "linear"
     if cfg.need_transformer_in and cfg.temporal_transformer:
         yield from _temporal_attn_entries("transformer_in", ("transformer_in",))
-    ip = cfg.ip_adapter_cross_attn
+    ip = (cfg.ip_adapter_cross_attn, cfg.need_ip_adapter_face)
     for i, btype in enumerate(cfg.down_block_types):
         base = f"down_blocks.{i}"
         for j in range(cfg.layers_per_block):
@@ -116,7 +127,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
             if cfg.temporal_conv:
                 yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
             if "CrossAttn" in btype:
-                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), ip)
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), *ip)
             if cfg.temporal_transformer:
                 yield from _temporal_attn_entries(
                     f"{base}.temp_attentions.{j}", (*path, "temp_attn")
@@ -137,7 +148,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
     if cfg.temporal_conv:
         yield from _temporal_conv_entries("mid_block.temp_convs.0", ("mid_block", "temp_conv_0"))
         yield from _temporal_conv_entries("mid_block.temp_convs.1", ("mid_block", "temp_conv_1"))
-    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"), ip)
+    yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"), *ip)
     if cfg.temporal_transformer:
         yield from _temporal_attn_entries(
             "mid_block.temp_attentions.0", ("mid_block", "temp_attn")
@@ -150,7 +161,7 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
             if cfg.temporal_conv:
                 yield from _temporal_conv_entries(f"{base}.temp_convs.{j}", (*path, "temp_conv"))
             if "CrossAttn" in btype:
-                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), ip)
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"), *ip)
             if cfg.temporal_transformer:
                 yield from _temporal_attn_entries(
                     f"{base}.temp_attentions.{j}", (*path, "temp_attn")
@@ -223,7 +234,8 @@ def clip_text_key_map(cfg) -> Iterator[KeyEntry]:
 
 def referencenet_key_map(cfg) -> Iterator[KeyEntry]:
     """ReferenceNet2D = the SD UNet trunk (its head pruned, referencenet.py
-    :624-636): the 2D UNet's down and mid keys."""
+    :624-636): the 2D UNet's down and mid keys, and its up blocks' under
+    ``need_self_attn_embs``."""
     yield "conv_in", ("conv_in",), "conv2d"
     yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
     yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
@@ -241,6 +253,17 @@ def referencenet_key_map(cfg) -> Iterator[KeyEntry]:
     yield from _resnet_entries("mid_block.resnets.0", ("mid_block", "resnet_0"))
     yield from _spatial_attn_entries("mid_block.attentions.0", ("mid_block", "attn"))
     yield from _resnet_entries("mid_block.resnets.1", ("mid_block", "resnet_1"))
+    if not cfg.need_self_attn_embs:
+        return
+    for i in range(n):  # SD1.5: the first up block has no attention
+        base = f"up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            path = ("up_blocks", i, "layers", j)
+            yield from _resnet_entries(f"{base}.resnets.{j}", (*path, "resnet"))
+            if i > 0:
+                yield from _spatial_attn_entries(f"{base}.attentions.{j}", (*path, "attn"))
+        if i < n - 1:
+            yield f"{base}.upsamplers.0.conv", ("up_blocks", i, "upsample", "conv"), "conv2d"
 
 
 def controlnet_key_map(cfg) -> Iterator[KeyEntry]:
@@ -319,6 +342,35 @@ def image_proj_key_map() -> Iterator[KeyEntry]:
     yield "norm", ("norm",), "norm"
 
 
+def resampler_key_map(cfg) -> Iterator[KeyEntry]:
+    """The IP-Adapter-Plus Resampler, the "image_proj" part of an
+    ip-adapter-plus file: ``layers.{i}.0`` the PerceiverAttention (norm1
+    over the image tokens, norm2 over the latents), ``layers.{i}.1`` its
+    feed-forward (LayerNorm, Linear, GELU, Linear) (``convert_resampler``,
+    sd_weights.py:795-840); the latents (1, Q, D) against the JAX (Q, D)."""
+    yield "latents", ("latents",), "latents"
+    yield "proj_in", ("proj_in",), "linear"
+    yield "proj_out", ("proj_out",), "linear"
+    yield "norm_out", ("norm_out",), "norm"
+    for i in range(cfg.depth):
+        path = ("layers", i)
+        yield f"layers.{i}.0.norm1", (*path, "norm_media"), "norm"
+        yield f"layers.{i}.0.norm2", (*path, "norm1"), "norm"
+        for name in ("to_q", "to_kv", "to_out"):
+            yield f"layers.{i}.0.{name}", (*path, name), "linear"
+        yield f"layers.{i}.1.0", (*path, "ff_norm"), "norm"
+        yield f"layers.{i}.1.1", (*path, "ff1"), "linear"
+        yield f"layers.{i}.1.3", (*path, "ff2"), "linear"
+
+
+def mlp_proj_key_map() -> Iterator[KeyEntry]:
+    """The FaceID MLPProjModel, the "image_proj" part of an
+    ip-adapter-faceid file (``convert_mlp_proj``, sd_weights.py:767-794)."""
+    yield "proj.0", ("fc1",), "linear"
+    yield "proj.2", ("fc2",), "linear"
+    yield "norm", ("norm",), "norm"
+
+
 def ip_adapter_site_paths(cfg) -> List[str]:
     """Module prefixes of the attn2 sites in the IP-Adapter checkpoint order:
     down blocks, up blocks (skipping the attention-less first up block), mid
@@ -356,11 +408,13 @@ def export_state_dict(key_map, params) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     c = np.ascontiguousarray
     for tk, path, kind in key_map:
-        if kind in ("raw", "embedding"):
+        if kind in ("raw", "embedding", "latents"):
             node = _get(params, path[:-1])
             if node is None or path[-1] not in node:
                 continue
-            out[tk if kind == "raw" else f"{tk}.weight"] = c(np.asarray(node[path[-1]]))
+            arr = np.asarray(node[path[-1]])
+            out[f"{tk}.weight" if kind == "embedding" else tk] = c(
+                arr[None] if kind == "latents" else arr)
             continue
         node = _get(params, path)
         if node is None or (kind != "patch" and "kernel" not in node and "scale" not in node):
@@ -503,22 +557,25 @@ def missing_keys(module: nn.Module, written: Iterable[str]) -> List[str]:
     return [k for k in module.state_dict() if k not in written]
 
 
-def ip_adapter_unet_state_dict(cfg, ip_state_dict: Mapping[str, object]) -> Dict[str, object]:
+def ip_adapter_unet_state_dict(cfg, ip_state_dict: Mapping[str, object],
+                               face: bool = False) -> Dict[str, object]:
     """The numbered ``{2i + 1}.to_k_ip.weight`` / ``.to_v_ip.weight`` of an
     ``ip_adapter.bin`` ("ip_adapter" part) under the UNet's own keys, site i
-    of ``ip_adapter_site_paths`` (``convert_ip_adapter_unet``,
-    musev_tpu/models/sd_weights.py:719)."""
+    of ``ip_adapter_site_paths``; ``face=True`` puts a FaceID file's pairs
+    on the ``ip_adapter_face_to_k_ip`` / ``_v_ip`` slots
+    (``convert_ip_adapter_unet``, musev_tpu/models/sd_weights.py:719-746)."""
     sd = ip_state_dict.get("ip_adapter", ip_state_dict)
     out = {}
     for i, site in enumerate(ip_adapter_site_paths(cfg)):
         for proj in ("to_k_ip", "to_v_ip"):
             key = f"{2 * i + 1}.{proj}.weight"
             if key in sd:
-                out[f"{site}.{proj}.weight"] = sd[key]
+                out[f"{site}.{'ip_adapter_face_' if face else ''}{proj}.weight"] = sd[key]
     return out
 
 
 def image_proj_state_dict(ip_state_dict: Mapping[str, object]) -> Mapping[str, object]:
-    """The ImageProjModel part of an ``ip_adapter.bin`` ("image_proj":
-    proj.weight/bias, norm.weight/bias; ``convert_image_proj``, :747)."""
+    """The projection part of an ``ip_adapter.bin`` ("image_proj"): the
+    ImageProjModel's, the Resampler's or the FaceID MLPProjModel's keys
+    (``convert_image_proj``, ``convert_resampler``, ``convert_mlp_proj``)."""
     return ip_state_dict.get("image_proj", ip_state_dict)

@@ -13,15 +13,18 @@ models; ``adain_fix=False`` (default) reproduces that.
 ``UNet3DConfig`` has the JAX config's fields for what is ported, including
 the ``musev_referencenet`` preset's ReferenceNet block-emb fusion (13
 ``ReferEmbFuse`` sites: the stem, after every down layer and downsampler, and
-after the mid block) and the IP-Adapter dual-KV cross-attention, and the
-pose preset's ControlNet residuals and PoseGuider embedding as inputs of
-``unet3d_apply``. Not ported yet, and absent from the config: the FaceID
-branch, the spatial position embedding and the sparse-causal temporal mask.
+after the mid block), the IP-Adapter and FaceID dual-KV cross-attention and
+the ReferenceNet self-attention embeddings (``refer_self_attn_embs``: written
+or read at every spatial site, down, mid and up in that order), and the pose
+preset's ControlNet residuals and PoseGuider embedding as inputs of
+``unet3d_apply``. Not ported yet, and absent from the config: the spatial
+position embedding and the sparse-causal temporal mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -77,6 +80,8 @@ class UNet3DConfig:
     need_refer_emb: bool = False  # ReferenceNet block-emb fusion
     ip_adapter_cross_attn: bool = False
     ip_adapter_dim: int = 768  # IP-Adapter image-token width after projection
+    need_ip_adapter_face: bool = False  # the IPAdapterFaceID branch at every attn2
+    ip_adapter_face_dim: int = 768
     keep_content_condition: bool = False
 
     @property
@@ -113,8 +118,9 @@ def _is_cross(name: str) -> bool:
 
 def _spatial_transformer(cfg: UNet3DConfig, c: int) -> SpatialTransformer:
     ip_dim = cfg.ip_adapter_dim if cfg.ip_adapter_cross_attn else None
+    face_dim = cfg.ip_adapter_face_dim if cfg.need_ip_adapter_face else None
     return SpatialTransformer(c, cfg.cross_attention_dim, cfg.attention_heads,
-                              cfg.norm_num_groups, ip_dim)
+                              cfg.norm_num_groups, ip_dim, face_dim)
 
 
 class _Block(nn.Module):
@@ -215,10 +221,12 @@ def prepare_unet_inputs(
     use_temporal: bool,
     cond_index: Optional[Sequence[int]],
     vision_clip_emb: Optional[torch.Tensor] = None,
+    ip_adapter_face_emb: Optional[torch.Tensor] = None,
 ):
-    """Returns ``(temb, femb, text_ctx, clip_ctx, cond_mask)``: temb, text_ctx
-    and clip_ctx are aligned to the (B*T, ...) frame rows of ``sample``; femb
-    is (B, T, D); clip_ctx is None without IP-Adapter tokens."""
+    """Returns ``(temb, femb, text_ctx, clip_ctx, face_ctx, cond_mask)``:
+    temb, text_ctx, clip_ctx and face_ctx are aligned to the (B*T, ...) frame
+    rows of ``sample``; femb is (B, T, D); clip_ctx and face_ctx are None
+    without IP-Adapter or FaceID tokens."""
     cfg = unet.cfg
     b, num_frames = sample.shape[:2]
     dtype, device = sample.dtype, sample.device
@@ -253,11 +261,14 @@ def prepare_unet_inputs(
     clip_ctx = None
     if vision_clip_emb is not None and cfg.ip_adapter_cross_attn:
         clip_ctx = rows(vision_clip_emb)
+    face_ctx = None
+    if ip_adapter_face_emb is not None and cfg.need_ip_adapter_face:
+        face_ctx = rows(ip_adapter_face_emb)
 
     cond_mask = None
     if cfg.keep_content_condition and use_temporal and num_frames > 1 and cond_index is not None:
         cond_mask = frame_mask(num_frames, cond_index, device=device)
-    return temb, femb, text_ctx, clip_ctx, cond_mask
+    return temb, femb, text_ctx, clip_ctx, face_ctx, cond_mask
 
 
 def unet3d_core(
@@ -275,8 +286,12 @@ def unet3d_core(
     cond_mask: Optional[torch.Tensor],
     clip_ctx: Optional[torch.Tensor] = None,
     ip_adapter_scale: float = 1.0,
+    face_ctx: Optional[torch.Tensor] = None,
+    ip_adapter_face_scale: float = 1.0,
     down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
     mid_block_refer_emb: Optional[torch.Tensor] = None,
+    refer_self_attn_embs: Optional[list] = None,
+    refer_self_attn_mode: Optional[str] = None,
     controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
     controlnet_mid_residual: Optional[torch.Tensor] = None,
     pose_guider_emb: Optional[torch.Tensor] = None,
@@ -290,7 +305,22 @@ def unet3d_core(
         reference_attn=cfg.reference_attn,
         vision_clip_tokens=clip_ctx,
         ip_adapter_scale=ip_adapter_scale,
+        face_tokens=face_ctx,
+        ip_adapter_face_scale=ip_adapter_face_scale,
     )
+    if refer_self_attn_mode not in (None, "write", "read"):
+        raise ValueError(f"refer_self_attn_mode {refer_self_attn_mode!r}: expected "
+                         "'write' or 'read'")
+    site = itertools.count()  # the spatial sites in call order
+
+    def spatial(mod, x):
+        i = next(site)
+        kw = dict(spatial_kw)
+        if refer_self_attn_embs is not None and refer_self_attn_mode == "write":
+            kw["self_attn_out"] = refer_self_attn_embs
+        elif refer_self_attn_embs is not None and refer_self_attn_mode == "read":
+            kw["refer_tokens"] = refer_self_attn_embs[i]
+        return mod(x, text_ctx, **kw)
     fuse_down = cfg.need_refer_emb and down_block_refer_embs is not None
 
     def temporal_conv(mod, x):
@@ -314,7 +344,7 @@ def unet3d_core(
         if hasattr(block, "temp_convs"):
             x = temporal_conv(block.temp_convs[j], x)
         if hasattr(block, "attentions"):
-            x = block.attentions[j](x, text_ctx, **spatial_kw)
+            x = spatial(block.attentions[j], x)
         if hasattr(block, "temp_attentions"):
             x = temporal_attn(block.temp_attentions[j], x)
         return adain(x)
@@ -352,7 +382,7 @@ def unet3d_core(
     x = mid.resnets[0](x, temb)
     if hasattr(mid, "temp_convs"):
         x = temporal_conv(mid.temp_convs[0], x)
-    x = mid.attentions[0](x, text_ctx, **spatial_kw)
+    x = spatial(mid.attentions[0], x)
     if hasattr(mid, "temp_attentions"):
         x = temporal_attn(mid.temp_attentions[0], x)
     x = mid.resnets[1](x, temb)
@@ -390,8 +420,12 @@ def unet3d_apply(
     skip_temporal: bool = False,
     down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
     mid_block_refer_emb: Optional[torch.Tensor] = None,
+    refer_self_attn_embs: Optional[list] = None,
+    refer_self_attn_mode: Optional[str] = None,
     vision_clip_emb: Optional[torch.Tensor] = None,
     ip_adapter_scale: float = 1.0,
+    ip_adapter_face_emb: Optional[torch.Tensor] = None,
+    ip_adapter_face_scale: float = 1.0,
     controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
     controlnet_mid_residual: Optional[torch.Tensor] = None,
     pose_guider_emb: Optional[torch.Tensor] = None,
@@ -403,8 +437,13 @@ def unet3d_apply(
     spliced in at ``cond_index``. ``down_block_refer_embs`` (12 tensors) and
     ``mid_block_refer_emb``, each (B, T_ref, h, w, c), are the ReferenceNet
     features fused at the referencenet preset's fuse sites;
-    ``vision_clip_emb`` (B, S_ip, D) the IP-Adapter image tokens. Returns
-    (B, T_total, H, W, C) over the spliced video (condition frames included).
+    ``vision_clip_emb`` (B, S_ip, D) the IP-Adapter image tokens and
+    ``ip_adapter_face_emb`` (B, S_f, D_f) the FaceID tokens.
+    ``refer_self_attn_embs`` under ``refer_self_attn_mode`` "write" is a
+    list that receives every spatial site's normalised self-attention input
+    (B*T, HW, C); under "read", entry i (B, S_ref, C) joins site i's
+    ReferenceOnly keys. Returns (B, T_total, H, W, C) over the spliced video
+    (condition frames included).
     """
     if condition_latents is not None:
         if gen_index is None or cond_index is None:
@@ -412,16 +451,19 @@ def unet3d_apply(
         sample = splice_with_index(condition_latents, cond_index, sample, gen_index)
     b, num_frames, h0, w0, _ = sample.shape
     use_temporal = not skip_temporal
-    temb, femb, text_ctx, clip_ctx, cond_mask = prepare_unet_inputs(
+    temb, femb, text_ctx, clip_ctx, face_ctx, cond_mask = prepare_unet_inputs(
         unet, sample, timestep, text_emb, motion_speed=motion_speed,
         use_temporal=use_temporal, cond_index=cond_index, vision_clip_emb=vision_clip_emb,
+        ip_adapter_face_emb=ip_adapter_face_emb,
     )
     x = unet3d_core(
         unet, sample.reshape(b * num_frames, h0, w0, -1), temb, femb, text_ctx,
         num_frames=num_frames, use_temporal=use_temporal, do_cfg=do_cfg,
         gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask,
-        clip_ctx=clip_ctx, ip_adapter_scale=ip_adapter_scale,
+        clip_ctx=clip_ctx, ip_adapter_scale=ip_adapter_scale, face_ctx=face_ctx,
+        ip_adapter_face_scale=ip_adapter_face_scale,
         down_block_refer_embs=down_block_refer_embs, mid_block_refer_emb=mid_block_refer_emb,
+        refer_self_attn_embs=refer_self_attn_embs, refer_self_attn_mode=refer_self_attn_mode,
         controlnet_down_residuals=controlnet_down_residuals,
         controlnet_mid_residual=controlnet_mid_residual, pose_guider_emb=pose_guider_emb,
     )

@@ -10,8 +10,11 @@ plain self-attention (reference attention.py:319-334).
 Attention sites: self-attention over at most ``MAX_SHORT_SEQ`` tokens with no
 context (the temporal rows) goes to the packed short-attention kernel; every
 other site goes through ``ops.attention.sdpa`` (the flash kernel on CUDA):
-spatial self- and cross-attention, the IP-Adapter dual-KV branch and the
-ReferenceNet fuse (``ReferEmbFuse``, KV = [reference tokens; own tokens]).
+spatial self- and cross-attention, the IP-Adapter and FaceID dual-KV
+branches and the ReferenceNet fuse (``ReferEmbFuse``, KV = [reference
+tokens; own tokens]). A spatial block can also write its normalised
+self-attention input (the ReferenceNet's write mode) and read another
+net's as extra ReferenceOnly keys (``refer_tokens``).
 The JAX package's T -> multiple-of-8 padding of temporal rows is a TPU
 re-tiling device and is not ported: the short kernel takes any T <= 64.
 """
@@ -86,11 +89,13 @@ class Attention(nn.Module):
 
     ``ip_kv_dim`` adds the IP-Adapter dual-KV projections to_k_ip/to_v_ip
     (attention_processor.py:267-339): a second attention over the image
-    tokens, scaled and added to the text-attention output.
+    tokens, scaled and added to the text-attention output. ``ip_face_kv_dim``
+    adds the FaceID pair ip_adapter_face_to_k_ip/_v_ip, a third attention
+    over the face tokens added after it.
     """
 
     def __init__(self, query_dim: int, kv_dim: Optional[int] = None, heads: int = 8,
-                 ip_kv_dim: Optional[int] = None):
+                 ip_kv_dim: Optional[int] = None, ip_face_kv_dim: Optional[int] = None):
         super().__init__()
         kv_dim = kv_dim or query_dim
         self.heads = heads
@@ -101,6 +106,9 @@ class Attention(nn.Module):
         if ip_kv_dim is not None:
             self.to_k_ip = nn.Linear(ip_kv_dim, query_dim, bias=False)
             self.to_v_ip = nn.Linear(ip_kv_dim, query_dim, bias=False)
+        if ip_face_kv_dim is not None:
+            self.ip_adapter_face_to_k_ip = nn.Linear(ip_face_kv_dim, query_dim, bias=False)
+            self.ip_adapter_face_to_v_ip = nn.Linear(ip_face_kv_dim, query_dim, bias=False)
 
     def project(self, x: torch.Tensor, context: Optional[torch.Tensor]):
         """(q, k, v) projections: self-attention is one matmul with the
@@ -114,19 +122,26 @@ class Attention(nn.Module):
         return self.to_q(x), k, v
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                ip_context: Optional[torch.Tensor] = None,
-                ip_scale: float = 1.0) -> torch.Tensor:
+                ip_context: Optional[torch.Tensor] = None, ip_scale: float = 1.0,
+                ip_face_context: Optional[torch.Tensor] = None,
+                ip_face_scale: float = 1.0) -> torch.Tensor:
         """x (N, S, C); context (N, S_kv, C_kv) or None for self-attention;
-        ip_context (N, S_ip, C_ip) image tokens for the IP branch."""
+        ip_context (N, S_ip, C_ip) image tokens for the IP branch;
+        ip_face_context (N, S_f, C_f) face tokens for the FaceID branch."""
         qp, kp, vp = self.project(x, context)
-        if context is None and ip_context is None and x.shape[1] <= MAX_SHORT_SEQ:
+        if (context is None and ip_context is None and ip_face_context is None
+                and x.shape[1] <= MAX_SHORT_SEQ):
             return self.to_out[0](short_attention_packed(qp, kp, vp, self.heads))
         q, k, v = (t.unflatten(-1, (self.heads, -1)) for t in (qp, kp, vp))
         out = sdpa(q, k, v)
-        if ip_context is not None and hasattr(self, "to_k_ip") and ip_scale > 0:
-            ip_k, ip_v = (p(ip_context).unflatten(-1, (self.heads, -1))
-                          for p in (self.to_k_ip, self.to_v_ip))
-            out = out + ip_scale * sdpa(q, ip_k, ip_v)
+        for ctx, scale, names in (
+                (ip_context, ip_scale, ("to_k_ip", "to_v_ip")),
+                (ip_face_context, ip_face_scale,
+                 ("ip_adapter_face_to_k_ip", "ip_adapter_face_to_v_ip"))):
+            if ctx is not None and hasattr(self, names[0]) and scale > 0:
+                extra_k, extra_v = (getattr(self, n)(ctx).unflatten(-1, (self.heads, -1))
+                                    for n in names)
+                out = out + scale * sdpa(q, extra_k, extra_v)
         return self.to_out[0](out.flatten(2))
 
 
@@ -137,29 +152,37 @@ def reference_self_attention(
     num_frames: int,
     cond_index: Optional[Sequence[int]],
     do_cfg: bool,
+    refer_tokens: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """ReferenceOnly self-attention over (B*T, HW, C): cond rows attend to
-    [own frame tokens; all vision-condition frame tokens]
-    (attention_processor.py:430-494); under CFG the uncond half gets plain
-    self-attention."""
+    [own frame tokens; all vision-condition frame tokens; ``refer_tokens``]
+    (attention_processor.py:430-494), ``refer_tokens`` (B, S_ref, C) another
+    net's tokens shared by the frames of a row; under CFG the uncond half
+    gets plain self-attention."""
     bt, hw, c = norm_h.shape
-    if cond_index is None or num_frames <= 1:
+    use_vis = cond_index is not None and num_frames > 1
+    if not use_vis and refer_tokens is None:
         return attn(norm_h)
     b = bt // num_frames
     x = norm_h.reshape(b, num_frames, hw, c)
 
-    def with_reference(rows: torch.Tensor) -> torch.Tensor:
+    def with_reference(rows: torch.Tensor, refer: Optional[torch.Tensor]) -> torch.Tensor:
         bb = rows.shape[0]
-        vis = rows[:, list(cond_index)].reshape(bb, 1, -1, c)
-        vis = vis.expand(bb, num_frames, vis.shape[2], c)
-        kv = torch.cat([rows, vis], dim=2).reshape(bb * num_frames, -1, c)
+        parts = [rows]
+        if use_vis:
+            vis = rows[:, list(cond_index)].reshape(bb, 1, -1, c)
+            parts.append(vis.expand(bb, num_frames, vis.shape[2], c))
+        if refer is not None:
+            parts.append(refer[:, None].to(rows.dtype).expand(bb, num_frames, *refer.shape[1:]))
+        kv = torch.cat(parts, dim=2).reshape(bb * num_frames, -1, c)
         return attn(rows.reshape(bb * num_frames, hw, c), context=kv)
 
     if do_cfg:
         half = b // 2
         out_u = attn(x[:half].reshape(-1, hw, c))
-        return torch.cat([out_u, with_reference(x[half:])], dim=0)
-    return with_reference(x)
+        refer_c = None if refer_tokens is None else refer_tokens[half:]
+        return torch.cat([out_u, with_reference(x[half:], refer_c)], dim=0)
+    return with_reference(x, refer_tokens)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -167,23 +190,26 @@ class BasicTransformerBlock(nn.Module):
     second self-attention (the temporal blocks' double_self_attention)."""
 
     def __init__(self, dim: int, cross_dim: Optional[int], heads: int,
-                 ip_dim: Optional[int] = None):
+                 ip_dim: Optional[int] = None, ip_face_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, heads=heads)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, cross_dim, heads=heads, ip_kv_dim=ip_dim)
+        self.attn2 = Attention(dim, cross_dim, heads=heads, ip_kv_dim=ip_dim,
+                               ip_face_kv_dim=ip_face_dim)
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                self_attn=None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: float = 1.0) -> torch.Tensor:
-        """``self_attn``: replaces attn1 as ``(attn1, norm_h) -> out``."""
+                self_attn=None, norm_out: Optional[list] = None, **ip) -> torch.Tensor:
+        """``self_attn``: replaces attn1 as ``(attn1, norm_h) -> out``;
+        ``norm_out``: a list that receives attn1's normalised input (the
+        write mode); ``ip``: attn2's IP-Adapter and FaceID inputs."""
         norm_h = self.norm1(x)
+        if norm_out is not None:
+            norm_out.append(norm_h)
         x = x + (self.attn1(norm_h) if self_attn is None else self_attn(self.attn1, norm_h))
-        x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
-                           ip_scale=ip_scale)
+        x = x + self.attn2(self.norm2(x), context=context, **ip)
         return x + self.ff(self.norm3(x))
 
 
@@ -191,21 +217,26 @@ class SpatialTransformer(nn.Module):
     """Transformer2DModel: GN -> 1x1 conv -> block -> 1x1 conv + residual."""
 
     def __init__(self, channels: int, cross_dim: int, heads: int, groups: int = 32,
-                 ip_dim: Optional[int] = None):
+                 ip_dim: Optional[int] = None, ip_face_dim: Optional[int] = None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, cross_dim, heads, ip_dim)]
+            [BasicTransformerBlock(channels, cross_dim, heads, ip_dim, ip_face_dim)]
         )
         self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, text_ctx: torch.Tensor, *, num_frames: int,
                 cond_index: Optional[Sequence[int]], do_cfg: bool,
                 reference_attn: bool, vision_clip_tokens: Optional[torch.Tensor] = None,
-                ip_adapter_scale: float = 1.0) -> torch.Tensor:
+                ip_adapter_scale: float = 1.0, face_tokens: Optional[torch.Tensor] = None,
+                ip_adapter_face_scale: float = 1.0,
+                refer_tokens: Optional[torch.Tensor] = None,
+                self_attn_out: Optional[list] = None) -> torch.Tensor:
         """x (B*T, H, W, C); text_ctx (B*T, S, cross_dim); vision_clip_tokens
-        (B*T, S_ip, ip_dim) IP-Adapter image tokens or None."""
+        (B*T, S_ip, ip_dim) IP-Adapter image tokens and face_tokens (B*T,
+        S_f, ip_face_dim) FaceID tokens, or None; refer_tokens (B, S_ref, C)
+        extra ReferenceOnly keys; self_attn_out receives attn1's input."""
         n, h, w, c = x.shape
         y = self.proj_in(self.norm(x)).reshape(n, h * w, c)
         self_attn = None
@@ -213,11 +244,12 @@ class SpatialTransformer(nn.Module):
             def self_attn(attn, norm_h):
                 return reference_self_attention(
                     attn, norm_h, num_frames=num_frames, cond_index=cond_index,
-                    do_cfg=do_cfg,
+                    do_cfg=do_cfg, refer_tokens=refer_tokens,
                 )
-        y = self.transformer_blocks[0](y, text_ctx, self_attn=self_attn,
-                                       ip_context=vision_clip_tokens,
-                                       ip_scale=ip_adapter_scale)
+        y = self.transformer_blocks[0](
+            y, text_ctx, self_attn=self_attn, norm_out=self_attn_out,
+            ip_context=vision_clip_tokens, ip_scale=ip_adapter_scale,
+            ip_face_context=face_tokens, ip_face_scale=ip_adapter_face_scale)
         return self.proj_out(y.reshape(n, h, w, c)) + x
 
 

@@ -1,8 +1,9 @@
 """Frame-index algebra for vision-conditioned denoising.
 
-Counterpart of the parts of ``musev_tpu/ops/index_ops.py`` the UNet uses
-(reference musev/data/data_util.py:242-497). Videos are ``(B, T, H, W, C)``;
-the time axis defaults to 1. Indices are static Python sequences.
+Counterpart of the parts of ``musev_tpu/ops/index_ops.py`` that the UNet and
+the serial-denoise carry use (reference musev/data/data_util.py:242-681).
+Videos are ``(B, T, H, W, C)``; the time axis defaults to 1. Indices are
+static Python sequences.
 """
 
 from __future__ import annotations
@@ -43,3 +44,23 @@ def frame_mask(
     mask = torch.ones(num_frames, dtype=dtype, device=device)
     mask[list(zero_index)] = 0
     return mask
+
+
+def fuse_part_tensor(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    overlap: int,
+    weight: float = 0.5,
+    skip_step: int = 0,
+    axis: int = 1,
+) -> torch.Tensor:
+    """Blend the last ``overlap`` frames of ``src`` into frames
+    ``[skip_step, skip_step + overlap)`` of ``dst``; returns a new tensor
+    (serial-denoise carry, reference fuse_part_tensor, data_util.py:655-681)."""
+    if overlap == 0:
+        return dst
+    tail = src.narrow(axis, src.shape[axis] - overlap, overlap).to(dst.dtype)
+    out = dst.clone()
+    part = out.narrow(axis, skip_step, overlap)
+    part.copy_(weight * tail + (1.0 - weight) * part)
+    return out

@@ -13,6 +13,11 @@ condition frames' maps; the window's maps], and runs the ControlNet over the
 spliced (condition + window) latents of both CFG halves with per-frame text,
 once per UNet call (reference pipeline_controlnet.py:1947-2038). A PoseGuider
 embeds the same gathered frames.
+
+Serial denoise (reference pipeline_controlnet.py:1846-2136): a shot may
+record, per step, the tail ``video_overlap`` frames of its latents and noise
+predictions, and the next shot blends them into its head
+(``fuse_part_tensor``); ``record_step_latents`` keeps every step's latents.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ from ..models.controlnet import (
 )
 from ..models.unet3d import UNet3D, UNet3DConfig, unet3d_apply
 from ..ops.context import WindowPlan
-from ..ops.index_ops import take_frames
+from ..ops.index_ops import fuse_part_tensor, take_frames
 from ..schedulers import Scheduler
+from ..utils.image_util import rescale_noise_cfg
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -51,7 +57,16 @@ class DenoiseSpec:
     noise_type: str = "video_fusion"
     motion_speed: float = 8.0
     ip_adapter_scale: float = 1.0
+    ip_adapter_face_scale: float = 1.0
+    # CFG rescale (arXiv:2305.08891 §3.4) of the combined noise; 0 is off
+    guidance_rescale: float = 0.0
     skip_temporal: bool = False
+    # serial-denoise carry: the tail video_overlap frames of every step's
+    # latents and noise are recorded for the next shot
+    video_overlap: int = 0
+    record_mid_video: bool = False
+    # every step's latents (the reference's need_middle_latents, :2138-2139)
+    record_step_latents: bool = False
     # img2img strength: only steps [start_step, num_steps) run (reference
     # get_timesteps, pipeline_controlnet.py:1627-1641)
     start_step: int = 0
@@ -75,18 +90,23 @@ def predict_noise(
     text_c: torch.Tensor,
     condition_latents: Optional[torch.Tensor] = None,
     vision_clip_emb: Optional[torch.Tensor] = None,
+    ip_adapter_face_emb: Optional[torch.Tensor] = None,
     refer_embs: Optional[Sequence[torch.Tensor]] = None,
     mid_refer_emb: Optional[torch.Tensor] = None,
+    refer_self_attn_embs: Optional[Sequence[Optional[torch.Tensor]]] = None,
     controlnet: Union[ControlNet, Sequence[ControlNet], None] = None,
     control_images: Union[torch.Tensor, Sequence[torch.Tensor], None] = None,
     pose_guider: Optional[PoseGuider] = None,
 ) -> torch.Tensor:
     """One VCPD noise prediction over all windows; latents (B, T, h, w, C).
 
-    ``vision_clip_emb`` (2B, S_ip, D) holds the IP-Adapter tokens as
-    [uncond; cond]; ``refer_embs`` / ``mid_refer_emb`` (B, N, h, w, c) the
-    ReferenceNet features, shared by both CFG halves (pipeline_controlnet.py
-    :845). ``control_images`` (B, n_vc + T, 8h, 8w, 3) in [0, 1], the
+    ``vision_clip_emb`` (2B, S_ip, D) and ``ip_adapter_face_emb`` (2B, S_f,
+    D_f) hold the IP-Adapter and FaceID tokens as [uncond; cond];
+    ``refer_embs`` / ``mid_refer_emb`` (B, N, h, w, c) the ReferenceNet
+    features, shared by both CFG halves (pipeline_controlnet.py:845), and
+    ``refer_self_attn_embs`` its self-attention embeddings (B, S, c) per
+    spatial site, read as extra ReferenceOnly keys (None entries are
+    skipped). ``control_images`` (B, n_vc + T, 8h, 8w, 3) in [0, 1], the
     condition frames' maps at the head, or one such tensor per ControlNet;
     the PoseGuider takes the first. Returns the CFG-combined noise
     (B, T, h, w, C) in float32."""
@@ -174,8 +194,14 @@ def predict_noise(
         skip_temporal=spec.skip_temporal,
         down_block_refer_embs=None if refer_embs is None else [tile_rows(e) for e in refer_embs],
         mid_block_refer_emb=None if mid_refer_emb is None else tile_rows(mid_refer_emb),
+        refer_self_attn_embs=None if refer_self_attn_embs is None else [
+            None if e is None else tile_rows(e) for e in refer_self_attn_embs],
+        refer_self_attn_mode=None if refer_self_attn_embs is None else "read",
         vision_clip_emb=None if vision_clip_emb is None else tile_rows(vision_clip_emb),
         ip_adapter_scale=spec.ip_adapter_scale,
+        ip_adapter_face_emb=None if ip_adapter_face_emb is None else tile_rows(
+            ip_adapter_face_emb),
+        ip_adapter_face_scale=spec.ip_adapter_face_scale,
         controlnet_down_residuals=cn_down, controlnet_mid_residual=cn_mid,
         pose_guider_emb=pose_emb,
     )
@@ -188,10 +214,13 @@ def predict_noise(
     buf = out.new_zeros((reps, b, t, h, w, c)).index_add_(2, idx, out)
     cnt = torch.as_tensor(counts, dtype=torch.float32, device=out.device)
     noise_pred = buf / cnt[None, None, :, None, None, None]
-    if spec.do_cfg:
-        g = float(spec.guidance[step_index])
-        return noise_pred[0] + g * (noise_pred[1] - noise_pred[0])
-    return noise_pred[0]
+    if not spec.do_cfg:
+        return noise_pred[0]
+    g = float(spec.guidance[step_index])
+    combined = noise_pred[0] + g * (noise_pred[1] - noise_pred[0])
+    if spec.guidance_rescale > 0.0:
+        combined = rescale_noise_cfg(combined, noise_pred[1], spec.guidance_rescale)
+    return combined
 
 
 def denoise_loop(
@@ -202,28 +231,76 @@ def denoise_loop(
     text_c: torch.Tensor,
     condition_latents: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    last_mid_latents: Optional[torch.Tensor] = None,
+    last_mid_noises: Optional[torch.Tensor] = None,
     **conditioning,
-) -> torch.Tensor:
+):
     """Run the denoise steps from ``spec.start_step``; returns the final
     float32 latents. A stochastic sampler draws each step's noise from
     ``generator`` (``spec.noise_type``, ``spec.w_ind_noise``); a multistep
     one threads its state from ``init_state`` through the steps, as the JAX
     package's scan carry does. ``conditioning``: ``predict_noise``'s
-    ReferenceNet, IP-Adapter, ControlNet and PoseGuider inputs."""
+    ReferenceNet, IP-Adapter, FaceID, ControlNet and PoseGuider inputs.
+
+    Serial denoise: ``last_mid_latents`` / ``last_mid_noises`` (S, B, ov, h,
+    w, C), the previous shot's recordings, blend into this shot's head: the
+    latents' entry 0 before the first step, entry i + 1 into the noise at
+    steps i <= N // 2 (weight 0.01, from frame 1) and into the stepped
+    latents at i <= 1 (weight 0.1, from frame 0), i the absolute step
+    index. Where S is short (a shot that started at ``start_step`` > 0
+    recorded N - start_step + 1 entries), entry i + 1 past its end reads the
+    last one, as the JAX package's dynamic index clamps
+    (musev_tpu/pipelines/denoiser.py:445-466; ROADMAP queue 3).
+
+    With ``spec.record_mid_video`` and ``video_overlap`` > 0 or
+    ``spec.record_step_latents`` it returns a tuple, as the JAX package
+    does: ``(final, (mid_latents, mid_noises))``, ``(final, step_latents)``
+    or ``(final, (mid_latents, mid_noises), step_latents)``. mid_latents
+    (S, B, ov, h, w, C) holds the initial tail then each step's, mid_noises
+    a zero slot then each step's, S = steps run + 1; step_latents (steps
+    run, B, T, h, w, C)."""
     lat = latents.float()
     sched = spec.scheduler
+    num_steps, ov = sched.num_inference_steps, spec.video_overlap
+    carry = ov > 0 and last_mid_latents is not None
+
+    def entry(rec: torch.Tensor, i: int) -> torch.Tensor:
+        return rec[min(i, rec.shape[0] - 1)]
+
+    if carry:
+        lat = fuse_part_tensor(last_mid_latents[0], lat, ov, weight=0.1, skip_step=0)
     multistep = getattr(sched, "is_multistep", False)
     state = sched.init_state(lat.shape, device=lat.device) if multistep else None
     noise_kw = dict(generator=generator, w_ind_noise=spec.w_ind_noise,
                     noise_type=spec.noise_type)
-    for i in range(spec.start_step, sched.num_inference_steps):
+    record = spec.record_mid_video and ov > 0
+    mid_lat = [lat[:, -ov:]] if record else []
+    mid_noise, steps = [], []
+    for i in range(spec.start_step, num_steps):
         noise_pred = predict_noise(unet, spec, lat, i, text_uc, text_c, condition_latents,
                                    **conditioning)
+        if ov > 0 and last_mid_noises is not None and i <= num_steps // 2:
+            noise_pred = fuse_part_tensor(entry(last_mid_noises, i + 1), noise_pred, ov,
+                                          weight=0.01, skip_step=1)
         if multistep:
             lat, _, state = sched.step(noise_pred, i, lat, state, **noise_kw)
         else:
             lat, _ = sched.step(noise_pred, i, lat, **noise_kw)
-    return lat
+        if carry and i <= 1:
+            lat = fuse_part_tensor(entry(last_mid_latents, i + 1), lat, ov, weight=0.1,
+                                   skip_step=0)
+        if record:
+            mid_lat.append(lat[:, -ov:])
+            mid_noise.append(noise_pred[:, -ov:])
+        if spec.record_step_latents:
+            steps.append(lat)
+    extras = []
+    if record:
+        extras.append((torch.stack(mid_lat),
+                       torch.stack([torch.zeros_like(mid_noise[0])] + mid_noise)))
+    if spec.record_step_latents:
+        extras.append(torch.stack(steps))
+    return (lat, *extras) if extras else lat
 
 
 def splice_condition_frames(

@@ -3,8 +3,15 @@
 Counterpart of ``musev_tpu/pipelines/loader.py`` for the three presets
 (``configs/model_registry.py``): ``musev``; ``musev_referencenet``, which adds
 the ReferenceNet, the ViT-H CLIP vision encoder and the IP-Adapter
-ImageProjModel, 1024 -> 4 x 768; ``musev_referencenet_pose``, which adds the
-ControlNet (320/640/1280/1280, stem 16/32/96/256) to those. Every module is
+projection: the ImageProjModel, 1024 -> 4 x 768, or for
+``ip_adapter_model_name`` "IPAdapterPlus" / "IPAdapterPlus-face" the
+Resampler (dim = the cross-attention width, depth 4, 12 heads where that
+width divides by 12 and the UNet's heads otherwise, ``ip_adapter_tokens``
+queries over the vision hidden states); ``musev_referencenet_pose``, which
+adds the ControlNet (320/640/1280/1280, stem 16/32/96/256) to those. A UNet
+config with ``need_ip_adapter_face`` adds the FaceID MLPProjModel
+(``ip_adapter_face_id_dim`` -> ``ip_adapter_tokens`` x
+``ip_adapter_face_dim``). Every module is
 first drawn at full width from a seed the way the JAX package's
 ``fast_init`` draws it (N(0, 0.02) for matrices, zero biases, unit norm
 scales), the zero-initialised fuse ``to_out`` and ControlNet zero convs
@@ -13,12 +20,14 @@ into it (``sd_weights.load_into``), in the JAX loader's order: the unet
 file, the T2I base (``sd_base``) over its spatial sites (an original-LDM
 ``.ckpt`` is split, and its VAE and text encoder serve where no explicit
 file loads), the VAE, text encoder, ReferenceNet, CLIP vision, the
-IP-Adapter (its ``image_proj`` into the ImageProjModel, its numbered
-``to_k_ip``/``to_v_ip`` onto the UNet's attn2 sites), the ControlNet and
-the PoseGuider, built only when its slot is set. ``strict=True`` refuses a
-set path that is missing and a module with a checkpoint of which some key
-came from no file: the UNet's keys are checked against the union of what
-the unet, sd_base and ip_adapter files wrote. Last come the adapters, in
+IP-Adapter (its ``image_proj`` into the projection, its numbered
+``to_k_ip``/``to_v_ip`` onto the UNet's attn2 sites), the FaceID file (its
+``image_proj`` into the MLPProjModel, its pairs onto the attn2 sites' face
+slots), the ControlNet and the PoseGuider, built only when its slot is set.
+``strict=True`` refuses a set path that is missing and a module with a
+checkpoint of which some key came from no file: the UNet's keys are checked
+against the union of what the unet, sd_base, ip_adapter and
+ip_adapter_face files wrote. Last come the adapters, in
 the JAX loader's order: each textual-inversion file appends its rows to
 the token table and binds its trigger (``path`` or ``path:trigger``, the
 file's stem by default), then each LoRA (``path`` or ``path:scale``), the
@@ -42,7 +51,7 @@ from ..models.clip_text import CLIPTextModel
 from ..models.clip_vision import CLIPVisionModel
 from ..models.common import GroupNorm, LayerNorm
 from ..models.controlnet import ControlNet, ControlNetConfig, PoseGuider
-from ..models.ip_adapter import ImageProjModel
+from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler, ResamplerConfig
 from ..models.ldm_convert import is_ldm_checkpoint, split_ldm_checkpoint
 from ..models.lora import fuse_lora
 from ..models.referencenet import ReferenceNet2D
@@ -60,9 +69,7 @@ logger = logging.getLogger(__name__)
 
 # the checkpoint slots, each a ``<slot>_checkpoint`` field of ModelPreset
 SLOTS = ("unet", "sd_base", "vae", "text", "referencenet", "clip_vision", "ip_adapter",
-         "controlnet", "pose_guider")
-# preset fields whose branch is not ported yet: (field, what, ROADMAP queue 1 item)
-NOT_PORTED_SLOTS = (("ip_adapter_face_checkpoint", "the FaceID IP-Adapter", 9),)
+         "ip_adapter_face", "controlnet", "pose_guider")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -90,25 +97,26 @@ def resolve_dtype(device: torch.device, dtype: Optional[torch.dtype]) -> torch.d
     return dtype
 
 
-def refuse_unported(preset: ModelPreset) -> None:
-    """Raise NotImplementedError for a preset field whose branch the port lacks."""
-    for field, what, item in NOT_PORTED_SLOTS:
-        if getattr(preset, field):
-            raise NotImplementedError(
-                f"{field} ({what}) is not ported to musev_torch yet (ROADMAP queue 1, item {item})"
-            )
-    if preset.ip_adapter_model_name != "IPAdapter":
-        raise NotImplementedError(
-            f"IP-Adapter model {preset.ip_adapter_model_name!r} is not ported to musev_torch yet "
-            "(only the ImageProjModel of 'IPAdapter'; ROADMAP queue 1, item 9)"
-        )
+def resampler_config(preset: ModelPreset) -> ResamplerConfig:
+    """The IP-Adapter-Plus Resampler of ``preset`` (JAX loader.py:245-269,
+    after ip_adapter_loader.py:95-111)."""
+    cross = preset.unet_cfg.cross_attention_dim
+    return ResamplerConfig(
+        dim=cross, depth=4,
+        heads=12 if cross % 12 == 0 else preset.unet_cfg.attention_heads,
+        num_queries=preset.ip_adapter_tokens,
+        embedding_dim=preset.clip_vision_cfg.hidden_size, output_dim=cross,
+    )
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator, scale: float = 0.02) -> None:
     """Redraw every weight in place: N(0, scale) matrices and kernels, zero
-    biases, unit norm weights. Other parameters keep their defaults."""
+    biases, unit norm weights, the Resampler's latents N(0, 1/dim). Other
+    parameters keep their defaults."""
     for m in module.modules():
+        if isinstance(m, Resampler):
+            m.latents.normal_(0.0, m.cfg.dim**-0.5, generator=generator)
         if isinstance(m, (GroupNorm, LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -160,7 +168,6 @@ def build_models(
     and then read from the preset's checkpoint files."""
     if isinstance(preset, str):
         preset = get_model_preset(preset)
-    refuse_unported(preset)
     device = resolve_device(device)
     dtype = resolve_dtype(device, dtype)
     paths = _checkpoint_paths(preset, strict)
@@ -178,8 +185,16 @@ def build_models(
             modules["referencenet"] = ReferenceNet2D(preset.referencenet_cfg)
         if preset.clip_vision_cfg is not None:
             modules["clip_vision"] = CLIPVisionModel(preset.clip_vision_cfg)
-            modules["ip_proj"] = ImageProjModel(preset.ip_adapter_clip_dim,
-                                                unet_cfg.ip_adapter_dim, preset.ip_adapter_tokens)
+            if "Plus" in preset.ip_adapter_model_name:
+                modules["ip_proj"] = Resampler(resampler_config(preset))
+            else:
+                modules["ip_proj"] = ImageProjModel(preset.ip_adapter_clip_dim,
+                                                    unet_cfg.ip_adapter_dim,
+                                                    preset.ip_adapter_tokens)
+        if unet_cfg.need_ip_adapter_face:
+            modules["ip_face_proj"] = MLPProjModel(preset.ip_adapter_face_id_dim,
+                                                   unet_cfg.ip_adapter_face_dim,
+                                                   preset.ip_adapter_tokens)
         if preset.controlnet_cfg is not None:
             modules["controlnet"] = ControlNet(preset.controlnet_cfg)
         if preset.pose_guider_checkpoint:
@@ -325,11 +340,14 @@ def _load_checkpoints(preset: ModelPreset, modules: Dict[str, nn.Module],
     for name in ("referencenet", "clip_vision"):
         if name in paths:
             load(name, sd_weights.load_checkpoint(paths[name]))
-    if "ip_adapter" in paths:
-        ip_sd = sd_weights.load_checkpoint(paths["ip_adapter"])
-        load("ip_proj", sd_weights.image_proj_state_dict(ip_sd))
-        if "ip_proj" in modules:
-            load("unet", sd_weights.ip_adapter_unet_state_dict(preset.unet_cfg, ip_sd))
+    for slot, proj, face in (("ip_adapter", "ip_proj", False),
+                             ("ip_adapter_face", "ip_face_proj", True)):
+        if slot in paths:
+            ip_sd = sd_weights.load_checkpoint(paths[slot])
+            load(proj, sd_weights.image_proj_state_dict(ip_sd))
+            if proj in modules:
+                load("unet", sd_weights.ip_adapter_unet_state_dict(preset.unet_cfg, ip_sd,
+                                                                   face=face))
     for name in ("controlnet", "pose_guider"):
         if name in paths:
             load(name, sd_weights.load_checkpoint(paths[name]))

@@ -6,22 +6,27 @@ Phase 2 denoises ``video_length`` frames per shot with the batched VCPD
 engine, conditioned on the previous shot's tail. A segmented VAE decode
 closes the run. The pipeline runs on the device its models live on.
 
-Ported: ``text2video`` with the vision-condition, T2I first frame, weighted
-prompt and context-window paths, and the ``musev_referencenet`` preset's
+``text2video`` runs the vision-condition, T2I first frame, weighted prompt
+and context-window paths, and the ``musev_referencenet`` preset's
 image-to-video conditioning: ReferenceNet features fused into the UNet and
-IP-Adapter image tokens (ImageProjModel) in a second cross-attention, both
-taken from the condition image by default. ``video2video`` (Pose2Video and
-Video2Video) runs a shot loop over the windows of a source video, each
-window's control maps driving the ControlNet and PoseGuider of the
-``musev_referencenet_pose`` preset, with the img2img ``video_strength``
-start. Every sampler family of the JAX package runs (the pipeline's
-``scheduler_name``), its noise drawn from the run's seeded CPU generator;
-the adapters fuse into the models in place: LoRA (``load_lora``,
-``unload_lora``), textual-inversion embeddings (``load_textual_inversion``)
-and LCM (``enable_lcm``, with an LCM-LoRA). Not ported yet (raise
-NotImplementedError): FaceID inputs and text2video's control images,
-image-prompt-only text, condition-image redraw, serial-denoise carries,
-per-step latents, histogram matching and CFG rescale.
+IP-Adapter image tokens (the ImageProjModel, or the IP-Adapter-Plus
+Resampler over CLIP's penultimate tokens) in a second cross-attention, both
+taken from the condition image by default, and FaceID tokens of a given
+face embedding in a third. Its options: control images through the
+ControlNet and PoseGuider, an img2img redraw of the condition image, the
+image tokens as the text (``prompt_only_use_image_prompt``), serial-denoise
+carries between shots, per-step latents, histogram matching and CFG
+rescale. ``video2video`` (Pose2Video and Video2Video) runs a shot loop over
+the windows of a source video, each window's control maps driving the
+ControlNet and PoseGuider of the ``musev_referencenet_pose`` preset, with
+the img2img ``video_strength`` start and the same last five options. Every
+sampler family of the JAX package runs (the pipeline's ``scheduler_name``),
+its noise drawn from the run's seeded CPU generator; the adapters fuse into
+the models in place: LoRA (``load_lora``, ``unload_lora``),
+textual-inversion embeddings (``load_textual_inversion``) and LCM
+(``enable_lcm``, with an LCM-LoRA). An option the JAX pipeline ignores on a
+preset without its branch (face embeddings without FaceID, control images
+without a ControlNet or PoseGuider) is ignored here too.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from ..models import sd_weights
 from ..models.clip_text import CLIPTextModel, clip_text_encode
 from ..models.clip_vision import CLIPVisionModel, clip_vision_encode, preprocess_clip_image
 from ..models.controlnet import ControlNet, PoseGuider
-from ..models.ip_adapter import ImageProjModel
+from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler
 from ..models.lora import fuse_lora
 from ..models.referencenet import ReferenceNet2D, referencenet_apply
 from ..models.unet3d import UNet3D
@@ -47,6 +52,7 @@ from ..ops.context import make_stacked_window_plan, make_window_plan
 from ..ops.guidance import guidance_schedule
 from ..ops.noise import make_noise
 from ..schedulers import ScheduleConfig, create_scheduler
+from ..utils.image_util import hist_match_video_to_frame
 from ..utils.text_emb import encode_weighted_prompt
 from ..utils.textual_inversion import (
     InversionTokenizer,
@@ -66,7 +72,9 @@ class MusevModels:
     # the musev_referencenet preset's conditioning branches
     referencenet: Optional[ReferenceNet2D] = None
     clip_vision: Optional[CLIPVisionModel] = None
-    ip_proj: Optional[ImageProjModel] = None
+    # the ImageProjModel ("IPAdapter") or the Resampler ("IPAdapterPlus")
+    ip_proj: Union[ImageProjModel, Resampler, None] = None
+    ip_face_proj: Optional[MLPProjModel] = None  # FaceID (need_ip_adapter_face)
     # the musev_referencenet_pose preset's control branches
     controlnet: Optional[ControlNet] = None
     pose_guider: Optional[PoseGuider] = None
@@ -82,61 +90,28 @@ class MusevModels:
 
 @dataclasses.dataclass
 class VideoResult:
-    """videos in [0, 1], (B, T, H, W, 3); latents (B, T, h, w, 4)."""
+    """videos in [0, 1], (B, T, H, W, 3); latents (B, T, h, w, 4). With
+    ``need_middle_latents``, ``videos_mid`` (steps, B, T', H, W, 3): every
+    step's latents decoded (the generated frames, condition frames not
+    re-spliced); with ``record_mid_video``, the last shot's serial-denoise
+    recordings ``mid_video_latents`` / ``mid_video_noises`` (steps + 1, B,
+    overlap, h, w, 4) (VideoPipelineOutput, pipeline_controlnet.py:68-77)."""
 
     videos: np.ndarray
     latents: np.ndarray
+    videos_mid: Optional[np.ndarray] = None
+    mid_video_latents: Optional[np.ndarray] = None
+    mid_video_noises: Optional[np.ndarray] = None
 
 
-# text2video options whose branches are not ported yet, with their no-op values
-_NOT_PORTED = {
-    "face_emb": None,
-    "control_images": None,
-    "redraw_condition_image": False,
-    "record_mid_video": False,
-    "need_middle_latents": False,
-    "need_hist_match": False,
-    "prompt_only_use_image_prompt": False,
-    "guidance_rescale": 0.0,
-    "ip_adapter_face_scale": 1.0,
-    "controlnet_conditioning_scale": 1.0,
-    "video_overlap": 1,
-    "redraw_strength": 0.75,
-}
-# options the JAX pipelines read only inside another option's branch
-# (musev_tpu/pipelines/pipeline.py:599-603, :848-852, :878-889, :909-917):
-# any value is a no-op while that option keeps its no-op value
-_READ_ONLY_UNDER = {
-    "ip_adapter_face_scale": "face_emb",
-    "controlnet_conditioning_scale": "control_images",
-    "video_overlap": "record_mid_video",
-    "redraw_strength": "redraw_condition_image",
-}
-# the same for video2video
-_NOT_PORTED_V2V = {
-    "record_mid_video": False,
-    "video_overlap": 1,
-    "need_middle_latents": False,
-    "need_hist_match": False,
-    "guidance_rescale": 0.0,
-}
-
-
-def _is_noop(value, default) -> bool:
-    return value is default or (default is not None and value == default)
-
-
-def _reject_unported(fn: str, unported: dict, table: dict) -> None:
-    """Raise for an unknown option or a not-ported one away from its no-op
-    value, unless the option is read only under another that is off."""
-    for name, value in unported.items():
-        if name not in table:
-            raise TypeError(f"{fn}() got an unexpected keyword argument {name!r}")
-        gate = _READ_ONLY_UNDER.get(name)
-        if gate in table and _is_noop(unported.get(gate, table[gate]), table[gate]):
-            continue
-        if not _is_noop(value, table[name]):
-            raise NotImplementedError(f"{fn}({name}=...) is not ported to musev_torch yet")
+def _split_recordings(out, spec: DenoiseSpec):
+    """``denoise_loop``'s return as (final, (mid_latents, mid_noises) or
+    None, step_latents or None)."""
+    if not isinstance(out, tuple):
+        return out, None, None
+    rest = list(out[1:])
+    steps = rest.pop() if spec.record_step_latents else None
+    return out[0], (rest[0] if rest else None), steps
 
 
 def _prompt_batch(prompt, negative_prompt) -> Tuple[List[str], List[str]]:
@@ -265,7 +240,8 @@ class MusevPipeline:
                    context_overlap: int, context_schedule: str, guidance_start: float,
                    guidance_end: Optional[float], guidance_method: str,
                    n_vision_cond: int, w_ind_noise: float, noise_type: str,
-                   motion_speed: float, ip_adapter_scale: float = 1.0) -> DenoiseSpec:
+                   motion_speed: float, ip_adapter_scale: float = 1.0,
+                   guidance_rescale: float = 0.0) -> DenoiseSpec:
         ctx = min(context_frames, time_size)
         if context_schedule == "uniform":
             plan = make_stacked_window_plan(num_steps, time_size, ctx,
@@ -287,6 +263,7 @@ class MusevPipeline:
             noise_type=noise_type,
             motion_speed=motion_speed,
             ip_adapter_scale=ip_adapter_scale,
+            guidance_rescale=guidance_rescale,
         )
 
     def generate_condition_latents(
@@ -309,6 +286,28 @@ class MusevPipeline:
                              device=self.m.device) * spec.scheduler.init_noise_sigma
         return denoise_loop(self.m.unet, spec, latents, text_uc, text_c, generator=generator)
 
+    def redraw_condition_images(
+        self, condition_images: np.ndarray, text_c: torch.Tensor, text_uc: torch.Tensor,
+        generator: torch.Generator, strength: float = 0.75, num_inference_steps: int = 30,
+        guidance_scale: float = 7.5, noise_type: str = "video_fusion", w_ind_noise: float = 0.5,
+    ) -> np.ndarray:
+        """Img2img of the (B, 1, H, W, 3) [0, 255] condition images with the
+        temporal layers skipped, from step min(int(N * (1 - strength)), N - 1)
+        (predictor.py:496-582, redraw_condition_image); returns the redrawn
+        images, same shape and range, float32."""
+        start = min(int(num_inference_steps * (1.0 - strength)), num_inference_steps - 1)
+        spec = dataclasses.replace(
+            self._make_spec(num_inference_steps, 1, 1, 0, "uniform_v2", guidance_scale, None,
+                            "linear", 0, w_ind_noise, noise_type, 8.0),
+            skip_temporal=True, start_step=start,
+        )
+        lat = self.encode_images(condition_images).float()
+        noise = make_noise(generator, tuple(lat.shape), noise_type=noise_type,
+                           w_ind_noise=w_ind_noise, device=self.m.device)
+        latents = spec.scheduler.add_noise(lat, noise, start)
+        out = denoise_loop(self.m.unet, spec, latents, text_uc, text_c, generator=generator)
+        return (self.decode_latents(out, segment=1) * 255.0).astype(np.float32)
+
     def _condition_latents(
         self, condition_images: Optional[np.ndarray], n_vc: int, text_c: torch.Tensor,
         text_uc: torch.Tensor, height: int, width: int, generator: torch.Generator, **t2i,
@@ -327,14 +326,18 @@ class MusevPipeline:
     def _ip_tokens(self, images_bn: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, N, H, W, 3) images -> (cond, uncond) IP-Adapter tokens, each
         (B, N * K, D): CLIP vision's projected pooled embedding through the
-        ImageProjModel; uncond projects zeros (pipeline_controlnet.py:736-774)."""
+        ImageProjModel, or its penultimate hidden states through the
+        Resampler (IP-Adapter-Plus, ip_adapter_loader.py:95-111); uncond
+        projects zeros (pipeline_controlnet.py:736-774)."""
         b, n = images_bn.shape[:2]
         imgs = torch.as_tensor(np.asarray(images_bn, np.float32), device=self.m.device)
         pixels = preprocess_clip_image(imgs.reshape(b * n, *imgs.shape[2:]),
                                        self.m.clip_vision.cfg.image_size)
-        _, pooled = clip_vision_encode(self.m.clip_vision, pixels)
-        cond = self.m.ip_proj(pooled)
-        uncond = self.m.ip_proj(torch.zeros_like(pooled))
+        plus = isinstance(self.m.ip_proj, Resampler)
+        hidden, pooled = clip_vision_encode(self.m.clip_vision, pixels, penultimate=plus)
+        emb = hidden if plus else pooled
+        cond = self.m.ip_proj(emb)
+        uncond = self.m.ip_proj(torch.zeros_like(emb))
         k = cond.shape[1]
         return cond.reshape(b, n * k, -1), uncond.reshape(b, n * k, -1)
 
@@ -377,6 +380,23 @@ class MusevPipeline:
             out["vision_clip_emb"] = torch.cat([uncond_tok, cond_tok]).to(m.dtype)
         return out
 
+    def _finish(self, latents: torch.Tensor, decode_segment: int, need_hist_match: bool,
+                step_latents: List[torch.Tensor], mids) -> VideoResult:
+        """Decode, histogram-match every frame after the first to frame 0 per
+        batch item (predictor.py:745-750), decode each step's latents."""
+        videos = self.decode_latents(latents, segment=decode_segment)
+        if need_hist_match:
+            videos = videos.copy()
+            for v in videos:
+                v[1:] = hist_match_video_to_frame(v[1:], v[0])
+        videos_mid = None
+        if step_latents:
+            videos_mid = np.stack([self.decode_latents(sl, segment=decode_segment)
+                                   for sl in torch.cat(step_latents, dim=2)])
+        mid_lat, mid_noise = (None, None) if mids is None else (m.cpu().numpy() for m in mids)
+        return VideoResult(videos=videos, latents=latents.cpu().numpy(), videos_mid=videos_mid,
+                           mid_video_latents=mid_lat, mid_video_noises=mid_noise)
+
     @torch.inference_mode()
     def text2video(
         self,
@@ -396,6 +416,7 @@ class MusevPipeline:
         video_guidance_scale_end: Optional[float] = None,
         video_guidance_scale_method: str = "linear",
         guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
         context_schedule: str = "uniform_v2",
         context_frames: int = 12,
         context_overlap: int = 4,
@@ -405,61 +426,116 @@ class MusevPipeline:
         motion_speed: float = 8.0,
         seed: int = 0,
         decode_segment: int = 16,
+        need_hist_match: bool = False,
+        prompt_only_use_image_prompt: bool = False,
         refer_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
         ip_adapter_image: Optional[np.ndarray] = None,  # (B, H, W, 3) [0, 255]
         ip_adapter_scale: float = 1.0,
-        **unported,
+        face_emb: Optional[np.ndarray] = None,  # (B, id_dim) insightface embedding
+        ip_adapter_face_scale: float = 1.0,
+        control_images: Optional[np.ndarray] = None,  # (B, n_vc + T_total, H, W, 3) [0, 255]
+        controlnet_conditioning_scale: float = 1.0,
+        record_mid_video: bool = False,
+        video_overlap: int = 1,
+        need_middle_latents: bool = False,
+        redraw_condition_image: bool = False,
+        redraw_strength: float = 0.75,
     ) -> VideoResult:
         """Text- or image-to-video generation (run_pipe_text2video, predictor.py:356-750).
 
-        With the ReferenceNet / IP-Adapter models present, ``refer_image``
-        defaults to the condition image and ``ip_adapter_image`` to
-        ``refer_image`` (predictor.py:588-636)."""
-        _reject_unported("text2video", unported, _NOT_PORTED)
+        ``redraw_condition_image`` redraws the given condition image first
+        (``redraw_condition_images`` at ``redraw_strength``). With the
+        ReferenceNet / IP-Adapter models present, ``refer_image`` defaults to
+        the (redrawn) condition image and ``ip_adapter_image`` to
+        ``refer_image`` (predictor.py:588-636). Shot i's control frames are
+        the first n_vc of ``control_images`` and its frames [n_vc + i*T,
+        n_vc + (i+1)*T). ``record_mid_video`` carries the tail
+        ``video_overlap`` frames of every step from shot to shot."""
         prompt, negative_prompt = _prompt_batch(prompt, negative_prompt)
         b = len(prompt)
+        m = self.m
         gen = torch.Generator().manual_seed(seed)
         text_c, text_uc = self.encode_prompt_pair(prompt, negative_prompt)
-        scale = self.m.vae.cfg.downscale
-        shape = (b, video_length, height // scale, width // scale,
-                 self.m.unet.cfg.in_channels)
+        scale = m.vae.cfg.downscale
+        shape = (b, video_length, height // scale, width // scale, m.unet.cfg.in_channels)
+        t2i = dict(num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                   noise_type=noise_type, w_ind_noise=w_ind_noise)
 
+        if n_vision_condition > 0 and condition_images is not None and redraw_condition_image:
+            condition_images = self.redraw_condition_images(
+                condition_images, text_c, text_uc, gen, strength=redraw_strength, **t2i)
         condition_latents = self._condition_latents(
-            condition_images, n_vision_condition, text_c, text_uc, height, width, gen,
-            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
-            noise_type=noise_type, w_ind_noise=w_ind_noise,
-        )
+            condition_images, n_vision_condition, text_c, text_uc, height, width, gen, **t2i)
 
         spec = self._make_spec(
             video_num_inference_steps, video_length, context_frames, context_overlap,
             context_schedule, video_guidance_scale, video_guidance_scale_end,
             video_guidance_scale_method, n_vision_condition, w_ind_noise, noise_type,
-            motion_speed, ip_adapter_scale=ip_adapter_scale,
+            motion_speed, ip_adapter_scale=ip_adapter_scale, guidance_rescale=guidance_rescale,
         )
+        extra: dict = {}
+        if control_images is not None and m.controlnet is not None:
+            extra.update(controlnet_cfg=m.controlnet.cfg,
+                         controlnet_scale=controlnet_conditioning_scale)
+        if control_images is not None and m.pose_guider is not None:
+            extra["pose_guider_cfg"] = m.pose_guider.cfg
+        if record_mid_video:
+            extra.update(record_mid_video=True, video_overlap=video_overlap)
+        if need_middle_latents:
+            extra["record_step_latents"] = True
         if refer_image is None and condition_images is not None:
             refer_image = np.asarray(condition_images)[:, 0]
         if ip_adapter_image is None and refer_image is not None:
             ip_adapter_image = refer_image
         refer_cond = self._prepare_reference_conditioning(refer_image, ip_adapter_image, text_c)
+        if prompt_only_use_image_prompt and "vision_clip_emb" in refer_cond:
+            # the image tokens replace the text tokens (pipeline_controlnet.py)
+            text_uc, text_c = refer_cond["vision_clip_emb"].chunk(2)
+        if face_emb is not None and m.ip_face_proj is not None:
+            emb = torch.as_tensor(np.asarray(face_emb), dtype=m.dtype, device=m.device)
+            refer_cond["ip_adapter_face_emb"] = torch.cat(
+                [m.ip_face_proj(torch.zeros_like(emb)), m.ip_face_proj(emb)]).to(m.dtype)
+            extra["ip_adapter_face_scale"] = ip_adapter_face_scale
+        spec = dataclasses.replace(spec, **extra)
+        use_ctrl = spec.controlnet_cfg is not None or spec.pose_guider_cfg is not None
+
         all_latents: List[torch.Tensor] = []
+        step_latents: List[torch.Tensor] = []
+        mids = None
+        n_vc = n_vision_condition
         for i_batch in range(n_batch):
             noise = make_noise(gen, shape, noise_type=noise_type, w_ind_noise=w_ind_noise,
-                               device=self.m.device)
+                               device=m.device)
             if condition_latents is not None:
                 # img-based video noise (pipeline prepare_latents :324-346)
                 cond_mean = condition_latents.mean(dim=1, keepdim=True)
                 noise = img_weight**0.5 * cond_mean + (1.0 - img_weight) ** 0.5 * noise
             latents = noise * spec.scheduler.init_noise_sigma
-            out = denoise_loop(self.m.unet, spec, latents, text_uc, text_c,
-                               condition_latents=condition_latents, generator=gen, **refer_cond)
-            full = splice_condition_frames(out, condition_latents, n_vision_condition)
-            all_latents.append(full if i_batch == 0 else full[:, n_vision_condition:])
-            if n_vision_condition > 0 and not fix_condition_images:
-                condition_latents = full[:, -n_vision_condition:]
+            ctrl = {}
+            if use_ctrl:
+                lo = n_vc + i_batch * video_length
+                maps = np.concatenate([control_images[:, :n_vc],
+                                       control_images[:, lo:lo + video_length]], axis=1)
+                ctrl = dict(controlnet=m.controlnet, pose_guider=m.pose_guider,
+                            control_images=torch.as_tensor(maps, dtype=torch.float32,
+                                                           device=m.device) / 255.0)
+            out = denoise_loop(m.unet, spec, latents, text_uc, text_c,
+                               condition_latents=condition_latents, generator=gen,
+                               last_mid_latents=None if mids is None else mids[0],
+                               last_mid_noises=None if mids is None else mids[1],
+                               **ctrl, **refer_cond)
+            out, shot_mids, steps = _split_recordings(out, spec)
+            if steps is not None:
+                step_latents.append(steps)
+            if shot_mids is not None:
+                mids = shot_mids
+            full = splice_condition_frames(out, condition_latents, n_vc)
+            all_latents.append(full if i_batch == 0 else full[:, n_vc:])
+            if n_vc > 0 and not fix_condition_images:
+                condition_latents = full[:, -n_vc:]
 
-        latents_cat = torch.cat(all_latents, dim=1)
-        videos = self.decode_latents(latents_cat, segment=decode_segment)
-        return VideoResult(videos=videos, latents=latents_cat.cpu().numpy())
+        return self._finish(torch.cat(all_latents, dim=1), decode_segment, need_hist_match,
+                            step_latents, mids)
 
     @torch.inference_mode()
     def video2video(
@@ -481,6 +557,7 @@ class MusevPipeline:
         num_inference_steps: int = 30,
         video_guidance_scale: float = 3.5,
         guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
         context_schedule: str = "uniform_v2",
         context_frames: int = 12,
         context_overlap: int = 4,
@@ -493,7 +570,10 @@ class MusevPipeline:
         ip_adapter_scale: float = 1.0,
         seed: int = 0,
         decode_segment: int = 16,
-        **unported,
+        need_hist_match: bool = False,
+        record_mid_video: bool = False,
+        video_overlap: int = 1,
+        need_middle_latents: bool = False,
     ) -> VideoResult:
         """Pose2Video / Video2Video: a shot loop over the source video's windows
         of ``time_size`` frames (run_pipe_video2video, predictor.py:760-1290).
@@ -505,8 +585,9 @@ class MusevPipeline:
         and their maps; the first on ``condition_images`` or a T2I frame.
         ``need_video2video`` starts each shot from the noised source latents
         and runs only the last ``video_strength`` of the steps. A trailing
-        partial window runs with its own (shorter) plan."""
-        _reject_unported("video2video", unported, _NOT_PORTED_V2V)
+        partial window runs with its own (shorter) plan. ``record_mid_video``
+        carries the tail min(``video_overlap``, window) frames of every step
+        from window to window (predictor.py:1262-1265)."""
         prompt, negative_prompt = _prompt_batch(prompt, negative_prompt)
         b = len(prompt)
         gen = torch.Generator().manual_seed(seed)
@@ -525,6 +606,10 @@ class MusevPipeline:
                              controlnet_scale=controlnet_conditioning_scale)
             if self.m.pose_guider is not None:
                 extra["pose_guider_cfg"] = self.m.pose_guider.cfg
+            if record_mid_video:
+                extra.update(record_mid_video=True, video_overlap=min(video_overlap, t_window))
+            if need_middle_latents:
+                extra["record_step_latents"] = True
             if need_video2video:  # the reference's get_timesteps (:1627-1641)
                 extra["start_step"] = min(
                     int(video_num_inference_steps * (1.0 - video_strength)),
@@ -534,6 +619,7 @@ class MusevPipeline:
                 video_num_inference_steps, t_window, context_frames, context_overlap,
                 context_schedule, video_guidance_scale, None, "linear", n_vc, w_ind_noise,
                 noise_type, motion_speed, ip_adapter_scale=ip_adapter_scale,
+                guidance_rescale=guidance_rescale,
             )
             return dataclasses.replace(spec, **extra)
 
@@ -548,8 +634,9 @@ class MusevPipeline:
         spec = build_spec(time_size)
         refer_cond = self._prepare_reference_conditioning(refer_image, ip_adapter_image, text_c)
         use_ctrl = spec.controlnet_cfg is not None or spec.pose_guider_cfg is not None
-        condition_latents = last_control = None
+        condition_latents = last_control = mids = None
         all_latents: List[torch.Tensor] = []
+        step_latents: List[torch.Tensor] = []
         for i_window, (window, control) in enumerate(PrefetchingWindows(windows,
                                                                          map_fn=prepare)):
             t_w = window.shape[1]
@@ -583,7 +670,15 @@ class MusevPipeline:
             out = denoise_loop(self.m.unet, spec_w, latents, text_uc, text_c,
                                condition_latents=condition_latents, generator=gen,
                                controlnet=self.m.controlnet, control_images=ctrl,
-                               pose_guider=self.m.pose_guider, **refer_cond)
+                               pose_guider=self.m.pose_guider,
+                               last_mid_latents=None if mids is None else mids[0],
+                               last_mid_noises=None if mids is None else mids[1],
+                               **refer_cond)
+            out, shot_mids, steps = _split_recordings(out, spec_w)
+            if steps is not None:
+                step_latents.append(steps)
+            if shot_mids is not None:
+                mids = shot_mids
             full = splice_condition_frames(out, condition_latents, n_vc)
             all_latents.append(full if i_window == 0 else full[:, n_vc:])
             if n_vc > 0:
@@ -592,6 +687,5 @@ class MusevPipeline:
 
         if not all_latents:
             raise ValueError("video_frames yielded no frames")
-        latents_cat = torch.cat(all_latents, dim=1)
-        videos = self.decode_latents(latents_cat, segment=decode_segment)
-        return VideoResult(videos=videos, latents=latents_cat.cpu().numpy())
+        return self._finish(torch.cat(all_latents, dim=1), decode_segment, need_hist_match,
+                            step_latents, mids)

@@ -36,6 +36,18 @@ from musev_torch.ops.kernels.short_attention import (
     short_attention_plain,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

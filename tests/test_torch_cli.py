@@ -28,6 +28,18 @@ from musev_torch.pipelines import loader
 from musev_torch.pipelines.loader import build_models, resolve_dtype
 from musev_torch.pipelines.pipeline import MusevPipeline
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 EXAMPLE_YAML = "configs/tasks/example.yaml"
 ONNX_ENV = ("MUSEV_DWPOSE_DET", "MUSEV_DWPOSE_POSE", "MUSEV_SAM_ENCODER", "MUSEV_SAM_DECODER",
             "MUSEV_FACE_DET")
@@ -154,13 +166,13 @@ def test_video2video_cli_on_a_pose_video(tmp_path, captured):
     np.testing.assert_array_equal(got, (res.videos[0] * 255).astype(np.uint8))
 
 
-# (the case's position in the list before the adapter flags and --scheduler
-# were ported: the test ids keep it, cli, flags, what the error names)
+# (the case's position in the list before the adapter flags, --scheduler and
+# --ip_adapter_face_checkpoint were ported: the test ids keep it, cli, flags,
+# what the error names)
 _REFUSED = [
     (0, t2v, ["--parallel", "fp"], "item 15"),
     (5, t2v, ["--face_det_onnx", "det.onnx", "--face_rec_onnx", "rec.onnx"], "item 12"),
     (6, t2v, ["--face_rec_onnx", "rec.onnx"], "item 12"),
-    (7, t2v, ["--ip_adapter_face_checkpoint", "face.bin"], "item 9"),
     (9, v2v, ["--processor_onnx", "depth=midas.onnx"], "item 12"),
     (10, v2v, ["--dwpose_det_onnx", "det.onnx", "--dwpose_pose_onnx", "pose.onnx"], "item 12"),
     (11, v2v, ["--sam_encoder_onnx", "enc.onnx", "--sam_decoder_onnx", "dec.onnx"], "item 12"),
@@ -181,6 +193,29 @@ def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli,
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", *flags])
+
+
+def test_face_checkpoint_flag_turns_on_faceid(monkeypatch, tmp_path):
+    """``--ip_adapter_face_checkpoint`` fills the preset's slot and turns on
+    the UNet's FaceID branch, as the JAX CLI does (text2video.py:193-200)."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def built(preset, **kw):
+        seen["preset"] = preset
+        raise Built
+
+    monkeypatch.setattr(loader, "build_models", built)
+    (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
+    with pytest.raises(Built):
+        t2v.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", "--tiny",
+                  "--model_name", "musev_referencenet", "--ip_adapter_face_checkpoint",
+                  "face.bin"])
+    preset = seen["preset"]
+    assert preset.ip_adapter_face_checkpoint == "face.bin"
+    assert preset.unet_cfg.need_ip_adapter_face
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,10 @@
 
 ControlNet, PoseGuider, a UNet3D call with their residuals and embedding, the
 denoise engine with control images and an img2img ``start_step``, the key
-names, and the video2video pipeline's shapes. Both sides get the same weights: the JAX package's
+names, the video2video pipeline's shapes, and video2video with its serial
+denoise, per-step latents, histogram matching and CFG rescale (relative L2
+1e-4 on the latents, each pipeline's noise replaced by the same seeded
+draws). Both sides get the same weights: the JAX package's
 ``init_*`` trees with every leaf redrawn as init + N(0, 0.05), so the
 zero-initialised convs (the ControlNet's zero convs, both stems' conv_out)
 are not zero and the control branches show in the output;
@@ -15,12 +18,16 @@ Euler steps 1e-3 (amplified by the CFG scale and sigma_max ~ 14.6).
 
 from functools import partial
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import musev_torch.pipelines.pipeline as tpipe
+import musev_tpu.pipelines.pipeline as jpipe
 from musev_tpu.models import sd_weights as jsw
 from musev_tpu.models.clip_text import CLIPTextConfig as JCLIPConfig
 from musev_tpu.models.clip_text import init_clip_text
@@ -36,6 +43,7 @@ from musev_tpu.models.vae import init_vae
 from musev_tpu.ops.context import make_window_plan as j_plan
 from musev_tpu.pipelines import denoiser as jden
 from musev_tpu.schedulers.euler_discrete import EulerDiscreteScheduler as JEuler
+from musev_tpu.utils.tokenizer import HashTokenizer as JHashTokenizer
 from musev_torch.models import convert, sd_weights
 from musev_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from musev_torch.models.controlnet import (
@@ -52,6 +60,18 @@ from musev_torch.pipelines import denoiser
 from musev_torch.pipelines.pipeline import MusevModels, MusevPipeline
 from musev_torch.schedulers.euler_discrete import EulerDiscreteScheduler
 from musev_torch.utils.tokenizer import HashTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TINY_UNET = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                  cross_attention_dim=24, attention_heads=4, norm_num_groups=8)
@@ -287,9 +307,93 @@ def test_video2video_on_cpu_gives_jax_shapes(pipe):
     assert np.abs(zeroed.latents - got.latents).max() > 1e-3
 
 
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@contextlib.contextmanager
+def _same_noise(seed):
+    """Both pipelines' ``make_noise`` draw, call by call, the same seeded
+    N(0, 1) arrays (``jax.random`` and ``torch.Generator`` differ)."""
+    rng = np.random.default_rng(seed)
+    draws, calls = [], {"jax": 0, "torch": 0}
+
+    def draw(side, shape):
+        i = calls[side]
+        calls[side] += 1
+        if i == len(draws):
+            draws.append(rng.standard_normal(tuple(shape), dtype=np.float32))
+        assert draws[i].shape == tuple(shape), (side, i, shape)
+        return draws[i]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpipe, "make_noise", lambda key, shape, **kw: jnp.asarray(draw("jax", shape)))
+        mp.setattr(tpipe, "make_noise",
+                   lambda gen, shape, device=None, **kw: _t(draw("torch", shape)).to(device))
+        yield calls
+
+
+@pytest.fixture(scope="module")
+def v2v_options(nets, pipe):
+    """video2video with its five options, on both packages: an 8-frame pose
+    source in two windows of 4 from noised source latents (strength 0.5 of 2
+    steps: start_step 1, so the second window reads the first's short record
+    past its end, where the JAX package clamps), CFG rescale 0.7, histogram
+    matching, the serial-denoise carry of 2 frames and per-step latents."""
+    j, _ = nets
+    kv = jax.random.PRNGKey(11)  # the vae and text encoder of ``pipe``
+    jmodels = jpipe.MusevModels(
+        unet_params=j["unet"], unet_cfg=j_musev_config(**TINY_UNET),
+        vae_params=init_vae(jax.random.fold_in(kv, 0), JVAEConfig(**TINY_VAE)),
+        vae_cfg=JVAEConfig(**TINY_VAE),
+        text_params=init_clip_text(jax.random.fold_in(kv, 1), JCLIPConfig(**TINY_CLIP)),
+        text_cfg=JCLIPConfig(**TINY_CLIP), tokenizer=JHashTokenizer(vocab_size=1000),
+        controlnet_params=j["cn"], controlnet_cfg=JCNConfig(**TINY_CN),
+        pose_guider_params=j["pg"], pose_guider_cfg=JCNConfig(**TINY_CN),
+    )
+    rng = np.random.default_rng(8)
+    video = rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    image = rng.uniform(0, 255, (1, 1, 32, 32, 3)).astype(np.float32)
+    kw = dict(V2V_ARGS, condition_images=image, need_video2video=True, video_strength=0.5,
+              guidance_rescale=0.7, need_hist_match=True, record_mid_video=True,
+              video_overlap=2, need_middle_latents=True)
+    with _same_noise(12) as calls:
+        want = jpipe.MusevPipeline(jmodels).video2video("a dancer", video, **kw)
+        got = pipe.video2video("a dancer", video, **kw)
+    assert calls["jax"] == calls["torch"] == 2
+    return got, want, kw, video
+
+
 @pytest.mark.parametrize("option,value", [("record_mid_video", True), ("need_middle_latents", True),
                                           ("need_hist_match", True), ("guidance_rescale", 0.7)])
-def test_video2video_refuses_unported_options(pipe, option, value):
-    video = np.zeros((4, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match=option):
-        pipe.video2video("a dancer", video, **V2V_ARGS, **{option: value})
+def test_video2video_refuses_unported_options(pipe, v2v_options, option, value):
+    """Each option runs and its output matches the JAX package's (the clip
+    with all five on); off again, the port's clip changes, or, for the
+    recordings, the output gains them and the latents stay."""
+    got, want, kw, video = v2v_options
+    assert got.latents.shape == want.latents.shape == (1, 9, 4, 4, 4)
+    assert _rel_l2(got.latents, want.latents) <= 1e-4
+    if option == "record_mid_video":  # (steps run + 1, B, overlap, h, w, C)
+        assert got.mid_video_latents.shape == want.mid_video_latents.shape == (2, 1, 2, 4, 4, 4)
+        assert _rel_l2(got.mid_video_latents, want.mid_video_latents) <= 1e-4
+        assert _rel_l2(got.mid_video_noises[1:], want.mid_video_noises[1:]) <= 1e-4
+    elif option == "need_middle_latents":  # (steps run, B, 8 frames, H, W, 3)
+        assert got.videos_mid.shape == want.videos_mid.shape == (1, 1, 8, 32, 32, 3)
+        assert _rel_l2(got.videos_mid, want.videos_mid) <= 1e-4
+    elif option == "need_hist_match":
+        # each frame is rounded to uint8 first: a value within float32
+        # rounding of a bin edge may land one bin apart
+        assert got.videos.shape == want.videos.shape == (1, 9, 32, 32, 3)
+        assert np.mean(np.abs(got.videos - want.videos) > 1e-4) < 1e-2
+    with _same_noise(12):
+        off = pipe.video2video("a dancer", video,
+                               **dict(kw, **{option: False if value is True else 0.0}))
+    if option == "need_middle_latents":  # a recording only
+        assert off.videos_mid is None
+        np.testing.assert_array_equal(off.latents, got.latents)
+    elif option == "need_hist_match":
+        np.testing.assert_array_equal(off.latents, got.latents)
+        assert np.abs(off.videos - got.videos).max() > 1e-2
+    else:  # the carry and the rescale move the latents
+        assert _rel_l2(off.latents, got.latents) > 1e-2

@@ -33,6 +33,18 @@ from musev_torch.models import convert, sd_weights
 from musev_torch.pipelines import loader
 from musev_torch.pipelines.loader import build_models
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PRESETS = ("musev", "musev_referencenet", "musev_referencenet_pose")
 _MUSEV_ONLY = ("temp_", "frame_embedding", "transformer_in", "refer_emb", "to_k_ip", "to_v_ip")
 _LEGACY = {".to_q.": ".query.", ".to_k.": ".key.", ".to_v.": ".value.", ".to_out.0.": ".proj_attn."}
@@ -243,18 +255,33 @@ def test_missing_path_raises_under_strict_and_warns_otherwise(ckpt_set, caplog):
     assert "does not exist" in caplog.text
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("ip_adapter_face_checkpoint", "face.bin", "item 9"),
-    ("ip_adapter_model_name", "IPAdapterPlus", "item 9"),
+@pytest.mark.parametrize("field,value", [
+    ("ip_adapter_face_checkpoint", "face.bin"),
+    ("ip_adapter_model_name", "IPAdapterPlus"),
 ])
-def test_unported_slots_raise_before_weights_are_drawn(monkeypatch, field, value, item):
-    def drawn(*a, **k):
-        raise AssertionError("weights were drawn")
-
-    monkeypatch.setattr(loader, "init_random_", drawn)
-    preset = _shrink_preset(get_model_preset("musev_referencenet", **{field: value}))
-    with pytest.raises(NotImplementedError, match=item):
-        build_models(preset, device="cpu")
+def test_unported_slots_raise_before_weights_are_drawn(caplog, field, value):
+    """The two slots of the ReferenceNet preset that the port refused before
+    it had their branches now build as the JAX loader builds them: a FaceID
+    path alone (here a missing file, logged) turns nothing on, as the UNet's
+    ``need_ip_adapter_face`` is off; "IPAdapterPlus" builds the Resampler
+    of the JAX loader's config and shapes."""
+    jp, tp = j_shrink(j_preset("musev_referencenet")), _shrink_preset(
+        get_model_preset("musev_referencenet"))
+    for preset in (jp, tp):
+        setattr(preset, field, value)
+    jm = j_build(jp, seed=3)
+    with caplog.at_level(logging.WARNING, logger=loader.__name__):
+        tm = build_models(tp, device="cpu")
+    if field == "ip_adapter_face_checkpoint":
+        assert jm.ip_face_proj_params is None and tm.ip_face_proj is None
+        assert "ip_adapter_face_checkpoint" in caplog.text and "does not exist" in caplog.text
+        want = convert.image_proj_from_jax(jm.ip_proj_params)
+    else:
+        assert jm.ip_proj_kind == "resampler"
+        assert dataclasses.asdict(tm.ip_proj.cfg) == dataclasses.asdict(jm.ip_resampler_cfg)
+        want = convert.resampler_from_jax(jm.ip_proj_params, jm.ip_resampler_cfg)
+    got = tm.ip_proj.state_dict()
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
 
 
 def test_sd_base_as_ldm_checkpoint(tmp_path):

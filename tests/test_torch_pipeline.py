@@ -38,6 +38,18 @@ from musev_torch.pipelines.pipeline import MusevModels, MusevPipeline
 from musev_torch.schedulers.euler_discrete import EulerDiscreteScheduler
 from musev_torch.utils.tokenizer import HashTokenizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY_UNET = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                  cross_attention_dim=24, attention_heads=4, norm_num_groups=8)
 TINY_VAE = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_groups=8)
@@ -114,13 +126,23 @@ def test_text2video_on_cpu_gives_jax_shapes(models):
 
 
 def test_text2video_refuses_unported_branches(models):
-    _, port = models
-    with pytest.raises(NotImplementedError, match="face_emb"):
-        MusevPipeline(port).text2video("a cat", height=32, width=32,
-                                       face_emb=np.zeros((1, 512)))
-    with pytest.raises(NotImplementedError, match="control_images"):
-        MusevPipeline(port).text2video("a cat", height=32, width=32,
-                                       control_images=np.zeros((1, 13, 32, 32, 3)))
+    """Face embeddings and control images on the ``musev`` preset, which has
+    no FaceID branch, ControlNet or PoseGuider: the JAX pipeline ignores
+    them, and so does the port (the clip is the one without them)."""
+    jp, port = models
+    kw = dict(height=32, width=32, video_length=3, n_batch=1, video_num_inference_steps=1,
+              num_inference_steps=1, context_frames=3, context_overlap=1, seed=5)
+    jmodels = JModels(unet_params=jp["unet"], unet_cfg=JUNetConfig(**TINY_UNET),
+                      vae_params=jp["vae"], vae_cfg=JVAEConfig(**TINY_VAE),
+                      text_params=jp["text"], text_cfg=JCLIPConfig(**TINY_CLIP),
+                      tokenizer=JHashTokenizer(vocab_size=1000))
+    options = dict(face_emb=np.ones((1, 512)), ip_adapter_face_scale=0.3,
+                   control_images=np.ones((1, 4, 32, 32, 3)), controlnet_conditioning_scale=0.5)
+    for pipe in (JPipeline(jmodels), MusevPipeline(port)):
+        plain = pipe.text2video("a cat", **kw)
+        got = pipe.text2video("a cat", **kw, **options)
+        np.testing.assert_array_equal(got.latents, plain.latents)
+        np.testing.assert_array_equal(got.videos, plain.videos)
 
 
 def test_build_models_needs_cuda_unless_cpu_is_asked():
@@ -134,6 +156,6 @@ def test_build_models_needs_cuda_unless_cpu_is_asked():
         build_models("musev_referencenet_pose")
     with pytest.raises(ValueError, match="unknown preset"):
         build_models("musev_pose", device="cpu")
-    with pytest.raises(NotImplementedError, match="IPAdapterPlus"):
-        build_models(get_model_preset("musev_referencenet", ip_adapter_model_name="IPAdapterPlus"),
-                     device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_models(get_model_preset("musev_referencenet", ip_adapter_model_name="IPAdapterPlus",
+                                      ip_adapter_face_checkpoint="faceid.bin"))

@@ -36,6 +36,18 @@ from musev_torch.ops.kernels.pivot import (
     unpivot_rows_plain,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "bench_fused_transpose.py"
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 B, T, HW, C, BN = 2, 3, 16, 8, 8  # HW a multiple of the block BN

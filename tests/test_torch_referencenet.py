@@ -63,6 +63,18 @@ from musev_torch.pipelines.pipeline import MusevModels, MusevPipeline
 from musev_torch.schedulers.euler_discrete import EulerDiscreteScheduler
 from musev_torch.utils.tokenizer import HashTokenizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY_UNET = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                  cross_attention_dim=24, attention_heads=4, norm_num_groups=8,
                  ip_adapter_dim=24)

@@ -22,6 +22,18 @@ from musev_tpu.schedulers import ScheduleConfig as JConfig
 from musev_tpu.schedulers import create_scheduler as j_create
 from musev_torch.schedulers import ScheduleConfig, create_scheduler
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-6  # relative L2, float32
 SHAPE = (1, 3, 4, 4, 4)  # B, T, h, w, C
 STEPS = 3  # the schedules' length: three chained steps reach the final one

@@ -32,6 +32,18 @@ from musev_torch.models.unet3d import UNet3D, UNet3DConfig, musev_config, unet3d
 from musev_torch.models.unet_blocks import reference_self_attention
 from musev_torch.models.vae import AutoencoderKL, VAEConfig, vae_decode, vae_encode
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: torch's OpenMP pool spun
+    against the suite's other xdist workers. Restored after, as the setting
+    is the process's and JAX shares it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY_UNET = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1,
                  cross_attention_dim=24, attention_heads=4, norm_num_groups=8)
 TINY_VAE = dict(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_groups=8)
@@ -200,5 +212,10 @@ def test_state_dict_keys_match_reference_keys(full):
 
 
 def test_unet_config_refuses_unported_options():
-    with pytest.raises(TypeError):
-        UNet3DConfig(**TINY_UNET, need_ip_adapter_face=True)
+    """The FaceID branch is ported; the spatial position embedding and the
+    sparse-causal temporal mask (ROADMAP queue 1, item 11) are not, and the
+    config refuses them."""
+    assert UNet3DConfig(**TINY_UNET, need_ip_adapter_face=True).need_ip_adapter_face
+    for option in ("need_spatial_position_emb", "temporal_self_attn_mask"):
+        with pytest.raises(TypeError):
+            UNet3DConfig(**TINY_UNET, **{option: True})
