@@ -8,8 +8,14 @@ default is the port's own (bfloat16 on CUDA, float32 on the CPU).
 ``--lcm_lora_path`` selects ``lcm``, and the loader fuses ``--lora_path``,
 ``--textual_inversion`` and the LCM-LoRA into the models.
 ``--ip_adapter_face_checkpoint`` turns on the UNet's FaceID branch, as the
-JAX CLI does. The ONNX face-embedding flags and ``--parallel`` are not
-ported yet and raise ``NotImplementedError`` before any model is built.
+JAX CLI does, and ``--face_det_onnx`` / ``--face_rec_onnx`` (given together;
+``--face_emb_norm`` L2-normalises) extract each task's ``face_emb`` from its
+``refer_face_image``, else its IP-Adapter, reference or condition image,
+through the ONNX executor on ``--device``, for the FaceID branch. The two
+ONNX files are read before any model is built, so a missing one raises
+``FileNotFoundError`` there (the JAX CLI reads them after building).
+``--parallel`` other than ``none`` is not ported yet and raises
+``NotImplementedError`` before any model is built.
 Each task's clip is written as an mp4 when the native video library is
 available, else as PNG frames.
 
@@ -87,10 +93,13 @@ def parse_args(argv=None):
     p.add_argument("--lcm", action="store_true",
                    help="use the LCM scheduler (with --lcm_lora_path fused)")
     p.add_argument("--face_det_onnx", type=str, default=None,
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="SCRFD face-detector .onnx for IPAdapterFaceID "
+                        "face_emb extraction (io/face_emb.py)")
     p.add_argument("--face_rec_onnx", type=str, default=None,
-                   help="not ported yet (ROADMAP queue 1, item 12)")
-    p.add_argument("--face_emb_norm", action="store_true")
+                   help="arcface recognition .onnx (insightface contract)")
+    p.add_argument("--face_emb_norm", action="store_true",
+                   help="L2-normalize the face embedding "
+                        "(InsightFaceExtractorNormEmb variant)")
     p.add_argument("--need_hist_match", action="store_true")
     p.add_argument("--redraw_condition_image", action="store_true",
                    help="img2img the condition image first")
@@ -115,21 +124,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported_flags(args, flags) -> None:
-    """Raise NotImplementedError for the first of ``flags`` ((attribute,
-    ROADMAP queue 1 item) pairs) that is set, and for ``--parallel``."""
+def refuse_unported_flags(args) -> None:
+    """Raise NotImplementedError for ``--parallel`` other than ``none``,
+    the one flag of the JAX CLIs not ported yet."""
     if args.parallel != "none":
         raise NotImplementedError(
             f"--parallel {args.parallel} is not ported to musev_torch yet "
             "(ROADMAP queue 1, item 15)")
-    for attr, item in flags:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"--{attr} is not ported to musev_torch yet (ROADMAP queue 1, item {item})")
 
 
-# the flags whose branch is not ported yet
-_NOT_PORTED_FLAGS = (("face_det_onnx", 12), ("face_rec_onnx", 12))
+def face_source(task, height: int, width: int, ip_img, refer, cond):
+    """The image a task's face embedding is taken from: its
+    ``refer_face_image``, else the IP-Adapter, reference or condition image
+    (reference text2video.py:931-971), or None."""
+    face_path = task.get("refer_face_image")
+    if face_path:
+        return _load_image(face_path, height, width)[:, 0]
+    for img in (ip_img, refer):
+        if img is not None:
+            return img
+    return None if cond is None else np.asarray(cond)[:, 0]
 
 
 def enable_face(preset, face_checkpoint) -> None:
@@ -213,7 +227,13 @@ def write_frames(out_path: str, frames: np.ndarray, fps: int) -> str:
 def main(argv=None) -> List[str]:
     """Run every selected task; returns the paths written."""
     args = parse_args(argv)
-    refuse_unported_flags(args, _NOT_PORTED_FLAGS)
+    refuse_unported_flags(args)
+    if bool(args.face_det_onnx) != bool(args.face_rec_onnx):
+        raise SystemExit(
+            "--face_det_onnx and --face_rec_onnx must be given together "
+            "(face-embedding extraction needs both the detector and the "
+            "recognition model)"
+        )
     from ..autoprompt import generate_prompts
     from ..configs.model_registry import get_model_preset, resolve_negative_prompt
     from ..configs.tasks import load_tasks
@@ -243,6 +263,12 @@ def main(argv=None) -> List[str]:
     if args.tiny:
         preset = _shrink_preset(preset)
     tasks = generate_prompts(load_tasks(args.test_data_path))
+    face_extractor = None
+    if args.face_det_onnx:
+        from ..io.face_emb import build_face_emb_extractor
+
+        face_extractor = build_face_emb_extractor(
+            args.face_det_onnx, args.face_rec_onnx, norm=args.face_emb_norm, device=args.device)
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
                           strict=args.strict_checkpoints)
     pipe = MusevPipeline(models, scheduler_name=scheduler)
@@ -267,6 +293,12 @@ def main(argv=None) -> List[str]:
         refer = _load_image(refer_path, height, width)[:, 0] if refer_path else None
         ip_path = task.get("ipadapter_image")
         ip_img = _load_image(ip_path, height, width)[:, 0] if ip_path else None
+        # IPAdapterFaceID: the identity embedding of the task's face image
+        face_emb = None
+        if face_extractor is not None and models.ip_face_proj is not None:
+            face_src = face_source(task, height, width, ip_img, refer, cond)
+            if face_src is not None:
+                face_emb = face_extractor(face_src.astype(np.uint8))
 
         sig = hashlib.md5(prompt.encode()).hexdigest()[:4]
         out_name = (
@@ -307,6 +339,7 @@ def main(argv=None) -> List[str]:
             seed=seed,
             refer_image=refer,
             ip_adapter_image=ip_img,
+            face_emb=face_emb,
             need_hist_match=args.need_hist_match,
             redraw_condition_image=args.redraw_condition_image,
             redraw_strength=args.redraw_strength,

@@ -9,9 +9,20 @@ without the native library). The flags, defaults and output file name are
 the JAX CLI's, plus ``--device`` (default ``cuda``) and ``--tiny``;
 ``--dtype`` defaults to bfloat16 on CUDA and float32 on the CPU. The
 samplers and adapters are the text2video CLI's (``--lcm`` or
-``--lcm_lora_path`` selects ``lcm``). The ONNX
-host stages (``--processor_onnx``, dwpose, SAM, the face detector) and
-``--parallel`` are not ported yet and raise before any model is built.
+``--lcm_lora_path`` selects ``lcm``). The ONNX host stages
+run on the port's executor on ``--device``: ``--processor_onnx name=path``
+registers map processors (depth, hed, lineart, normal families), and
+``--controlnet_name`` ``dwpose*``/``pose*``, ``sam``/``mobile_sam`` and
+``face_detector`` take their graphs from ``--dwpose_det_onnx`` and
+``--dwpose_pose_onnx``, ``--sam_encoder_onnx`` and ``--sam_decoder_onnx``,
+and ``--face_detector_onnx`` (or the ``MUSEV_*`` environment variables the
+JAX CLI reads). A processor name without its files raises the JAX CLI's
+``SystemExit``. The ONNX files the run reads, and any ONNX flag given on
+the command line, are checked before any model is built, so a missing one
+raises ``FileNotFoundError`` there (the JAX CLI reads them after
+building); an environment default for a stage the run does not select is
+not read. ``--parallel`` other than ``none`` is not ported yet and
+raises ``NotImplementedError`` before any model is built.
 """
 
 from __future__ import annotations
@@ -30,9 +41,6 @@ from .text2video import (
     refuse_unported_flags,
     write_frames,
 )
-
-# processor names the JAX CLI serves through its ONNX stages
-_ONNX_PROCESSORS = ("dwpose", "pose", "sam", "mobile_sam", "face_detector")
 
 
 def parse_args(argv=None):
@@ -62,26 +70,29 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--video_is_middle", action="store_true")
     p.add_argument("--controlnet_name", type=str, default="none",
-                   help="condition processor: none|canny|tile|content|<registered> "
-                        "(register custom via musev_torch.io.processors); the "
-                        "ONNX-backed ones are not ported yet (ROADMAP queue 1, item 12)")
+                   help="condition processor: none|canny|tile|content|dwpose* (with "
+                        "--dwpose_det_onnx/--dwpose_pose_onnx)|sam|face_detector|"
+                        "<registered> (register custom via musev_torch.io.processors)")
     p.add_argument("--processor_onnx", action="append", default=None,
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="register an ONNX map processor: name=path (e.g. "
+                        "depth=/models/midas.onnx hed=/models/hed.onnx); "
+                        "kind inferred from the name "
+                        "(mmcm controlnet.py:513 families)")
     p.add_argument("--dwpose_det_onnx", type=str,
                    default=os.environ.get("MUSEV_DWPOSE_DET"),
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="yolox person-detector onnx for the dwpose stage")
     p.add_argument("--dwpose_pose_onnx", type=str,
                    default=os.environ.get("MUSEV_DWPOSE_POSE"),
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="rtmpose whole-body onnx for the dwpose stage")
     p.add_argument("--sam_encoder_onnx", type=str,
                    default=os.environ.get("MUSEV_SAM_ENCODER"),
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="SAM image-encoder onnx for sam/mobile_sam")
     p.add_argument("--sam_decoder_onnx", type=str,
                    default=os.environ.get("MUSEV_SAM_DECODER"),
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="SAM mask-decoder onnx for sam/mobile_sam")
     p.add_argument("--face_detector_onnx", type=str,
                    default=os.environ.get("MUSEV_FACE_DET"),
-                   help="not ported yet (ROADMAP queue 1, item 12)")
+                   help="yolox-format face detector onnx for face_detector")
     p.add_argument("--lora_path", action="append", default=None,
                    help="LoRA safetensors, repeatable; 'path' or 'path:scale'")
     p.add_argument("--textual_inversion", action="append", default=None,
@@ -130,9 +141,76 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-_NOT_PORTED_FLAGS = (("processor_onnx", 12), ("dwpose_det_onnx", 12), ("dwpose_pose_onnx", 12),
-                     ("sam_encoder_onnx", 12), ("sam_decoder_onnx", 12),
-                     ("face_detector_onnx", 12))
+# each ONNX flag's environment default, as the JAX CLI reads it
+_ONNX_ENV = {"dwpose_det_onnx": "MUSEV_DWPOSE_DET", "dwpose_pose_onnx": "MUSEV_DWPOSE_POSE",
+             "sam_encoder_onnx": "MUSEV_SAM_ENCODER", "sam_decoder_onnx": "MUSEV_SAM_DECODER",
+             "face_detector_onnx": "MUSEV_FACE_DET"}
+# the stage each --controlnet_name selects: its flags and the SystemExit without them
+_STAGES = {
+    "dwpose": (("dwpose_det_onnx", "dwpose_pose_onnx"),
+               "--controlnet_name dwpose*/pose* needs --dwpose_det_onnx "
+               "(yolox) and --dwpose_pose_onnx (rtmpose wholebody) onnx "
+               "files, or MUSEV_DWPOSE_DET/MUSEV_DWPOSE_POSE env vars"),
+    "sam": (("sam_encoder_onnx", "sam_decoder_onnx"),
+            "--controlnet_name sam/mobile_sam needs --sam_encoder_onnx "
+            "and --sam_decoder_onnx (segment-anything ONNX export), or "
+            "MUSEV_SAM_ENCODER/MUSEV_SAM_DECODER env vars"),
+    "face_detector": (("face_detector_onnx",),
+                      "--controlnet_name face_detector needs --face_detector_onnx "
+                      "(yolox-format detector), or the MUSEV_FACE_DET env var"),
+}
+
+
+def _stage(name: str):
+    if name.startswith(("dwpose", "pose")):
+        return "dwpose"
+    if name in ("sam", "mobile_sam"):
+        return "sam"
+    return "face_detector" if name == "face_detector" else None
+
+
+def register_onnx_stages(args) -> None:
+    """Register the ONNX processors the flags name, their graphs on
+    ``args.device``, as the JAX CLI does: ``--processor_onnx`` entries, and
+    the dwpose, SAM or face-detector stage that ``--controlnet_name``
+    selects (``SystemExit`` without its files). The files this run reads,
+    and any ONNX flag given on the command line, are checked first; a file
+    that only an environment default names for a stage this run does not
+    select is never read, as in the JAX CLI."""
+    specs = []
+    for spec in args.processor_onnx or []:
+        if "=" not in spec:
+            raise SystemExit(f"--processor_onnx expects name=path, got {spec!r}")
+        specs.append(spec.split("=", 1))
+    stage = _stage(args.controlnet_name)
+    flags = _STAGES[stage][0] if stage else ()
+    if not all(getattr(args, flag) for flag in flags):
+        raise SystemExit(_STAGES[stage][1])
+    given = [flag for flag, var in _ONNX_ENV.items()
+             if getattr(args, flag) not in (None, os.environ.get(var))]
+    named = [(f"--processor_onnx {name}", path) for name, path in specs] + [
+        (f"--{flag}", getattr(args, flag)) for flag in _ONNX_ENV
+        if flag in flags or flag in given]
+    for flag, path in named:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{flag}: no ONNX file at {path!r}")
+    from ..io.processors import register_onnx_processor
+
+    for name, path in specs:
+        register_onnx_processor(name, path, device=args.device)
+    paths = [getattr(args, flag) for flag in flags]
+    if stage == "dwpose":
+        from ..io.dwpose import register_dwpose
+
+        register_dwpose(*paths, device=args.device)
+    elif stage == "sam":
+        from ..io.sam import register_sam
+
+        register_sam(*paths, device=args.device)
+    elif stage == "face_detector":
+        from ..io.sam import register_face_detector
+
+        register_face_detector(*paths, device=args.device)
 
 
 def _windows(reader, args, height: int, width: int):
@@ -157,11 +235,8 @@ def _windows(reader, args, height: int, width: int):
 def main(argv=None) -> List[str]:
     """Run every selected task that has a ``video_path``; returns the paths written."""
     args = parse_args(argv)
-    refuse_unported_flags(args, _NOT_PORTED_FLAGS)
-    if args.controlnet_name.startswith(_ONNX_PROCESSORS):
-        raise NotImplementedError(
-            f"--controlnet_name {args.controlnet_name} needs the ONNX host stages, which are "
-            "not ported to musev_torch yet (ROADMAP queue 1, item 12)")
+    refuse_unported_flags(args)
+    register_onnx_stages(args)
     from ..configs.model_registry import get_model_preset, resolve_negative_prompt
     from ..configs.tasks import load_tasks
     from ..io.processors import get_processor

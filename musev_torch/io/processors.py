@@ -8,10 +8,13 @@ built-ins are copies of the JAX package's:
   * ``canny`` — numpy separable gaussian + Sobel + NMS + hysteresis
   * ``tile`` / ``content`` — low-pass / content-shuffle maps
 
-The ONNX-backed kinds (``OnnxImageProcessor``, ``register_onnx_processor``:
-depth, hed, lineart, normal), dwpose, SAM and the face detector wait for the
-port of the ONNX executor (ROADMAP queue 1, item 12). Custom stages register
-a callable via ``register_processor``; unregistered names raise.
+``OnnxImageProcessor`` runs an image-to-map ONNX model (depth, hed,
+scribble, lineart, normal conventions) on the port's executor, and
+``register_onnx_processor(name, path)`` registers one under a reference
+name. The dwpose family (``dwpose*``, ``pose*``: ``io/dwpose.py``), SAM
+and the face detector (``io/sam.py``) register through their own modules'
+``register_*``. Custom stages register a callable via
+``register_processor``; unregistered names raise.
 """
 
 from __future__ import annotations
@@ -187,3 +190,153 @@ def content_shuffle_video(
 
 register_processor("tile", tile_video)
 register_processor("content", content_shuffle_video)
+
+
+# ---------------------------------------------------------------------------
+# generic ONNX-backed single-image processors (depth / hed / lineart ...)
+# run on the port's executor (musev_torch.onnx) — the reference drives these
+# through onnxruntime/controlnet_aux binaries
+
+_ONNX_KIND_DEFAULTS = {
+    # midas/dpt-style relative depth: (x/255 - 0.5)/0.5 input, single-channel
+    # output min-max normalized per frame (controlnet_aux MidasDetector)
+    "depth": dict(mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
+                  post="minmax", input_size=384),
+    # HED edge net: raw 0-255 float input, sigmoid edge prob output
+    # (controlnet_aux ControlNetHED contract)
+    "hed": dict(mean=None, std=None, post="unit", input_size=None),
+    # scribble = binarized hed
+    "scribble": dict(mean=None, std=None, post="binary", input_size=None),
+    # lineart generators: x/255 input, line-intensity output rendered as
+    # white-on-black (controlnet_aux LineartDetector)
+    "lineart": dict(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+                    post="invert", input_size=None),
+    # surface-normal nets (controlnet_aux NormalBaeDetector): imagenet-
+    # normalized input, 3-channel normal-vector output rendered as the
+    # standard ((n/|n|)+1)/2 RGB normal map
+    "normal": dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+                   post="normal", input_size=384),
+}
+
+
+class OnnxImageProcessor:
+    """frames (T, H, W, 3) uint8 -> (T, H, W, 3) uint8 maps via an ONNX
+    image-to-map model run by the port's executor.
+
+    The model is fed NCHW float32. ``kind`` picks the reference
+    pre/postprocessing convention (see _ONNX_KIND_DEFAULTS); every knob can
+    be overridden. ``input_size``: long-side resize before inference (None =
+    native resolution, rounded down to ``multiple_of``); the map is resized
+    back to the source frame size.
+    """
+
+    def __init__(self, model, kind: str = "depth", *, input_size=...,
+                 multiple_of: int = 32, mean=..., std=..., post=...,
+                 threshold: float = 0.5):
+        if kind not in _ONNX_KIND_DEFAULTS:
+            raise ValueError(
+                f"unknown onnx processor kind {kind!r}; choose from "
+                f"{sorted(_ONNX_KIND_DEFAULTS)}"
+            )
+        d = _ONNX_KIND_DEFAULTS[kind]
+        self.model = model
+        self.kind = kind
+        self.input_size = d["input_size"] if input_size is ... else input_size
+        self.multiple_of = multiple_of
+        self.mean = d["mean"] if mean is ... else mean
+        self.std = d["std"] if std is ... else std
+        self.post = d["post"] if post is ... else post
+        self.threshold = threshold
+
+    def _pre(self, frame: np.ndarray) -> np.ndarray:
+        from PIL import Image
+
+        h, w = frame.shape[:2]
+        if self.input_size:
+            s = self.input_size / max(h, w)
+            nh, nw = max(1, round(h * s)), max(1, round(w * s))
+        else:
+            nh, nw = h, w
+        m = self.multiple_of
+        nh, nw = max(m, nh - nh % m), max(m, nw - nw % m)
+        if (nh, nw) != (h, w):
+            frame = np.asarray(
+                Image.fromarray(frame.astype(np.uint8)).resize((nw, nh))
+            )
+        x = frame.astype(np.float32)
+        if self.mean is not None:
+            x = x / 255.0
+            x = (x - np.asarray(self.mean, np.float32)) / np.asarray(
+                self.std, np.float32
+            )
+        return x.transpose(2, 0, 1)[None]  # NCHW
+
+    def _post(self, y: np.ndarray, h: int, w: int) -> np.ndarray:
+        from PIL import Image
+
+        y = np.asarray(y, np.float32)
+        if self.post == "normal":
+            while y.ndim > 3:  # (1, 3, H', W') -> (3, H', W')
+                y = y[0]
+            n = y / np.maximum(
+                np.linalg.norm(y, axis=0, keepdims=True), 1e-6
+            )
+            rgb = ((n + 1.0) * 0.5 * 255.0).astype(np.uint8)
+            rgb = rgb.transpose(1, 2, 0)
+            if rgb.shape[:2] != (h, w):
+                rgb = np.asarray(Image.fromarray(rgb).resize((w, h)))
+            return rgb
+        while y.ndim > 2:  # (1, [1,] H', W') -> (H', W')
+            y = y[0] if y.shape[0] == 1 else y.mean(axis=0)
+        if self.post == "minmax":
+            lo, hi = float(y.min()), float(y.max())
+            y = (y - lo) / (hi - lo) if hi > lo else np.zeros_like(y)
+        elif self.post == "unit":
+            y = np.clip(y, 0.0, 1.0)
+        elif self.post == "binary":
+            y = (np.clip(y, 0.0, 1.0) > self.threshold).astype(np.float32)
+        elif self.post == "invert":
+            y = 1.0 - np.clip(y, 0.0, 1.0)
+        else:
+            raise ValueError(f"unknown post {self.post!r}")
+        g = (y * 255.0).astype(np.uint8)
+        if g.shape != (h, w):
+            g = np.asarray(Image.fromarray(g).resize((w, h)))
+        return np.stack([g] * 3, axis=-1)
+
+    def __call__(self, frames: np.ndarray) -> np.ndarray:
+        out = []
+        for f in frames:
+            h, w = f.shape[:2]
+            (y,) = self.model.run({self.model.input_names[0]: self._pre(f)})
+            out.append(self._post(y, h, w))
+        return np.stack(out)
+
+
+_NAME_TO_KIND = {
+    "depth": "depth", "zoe": "depth", "leres": "depth",
+    "hed": "hed", "softedge": "hed", "pidi": "hed",
+    "hed_scribble": "scribble", "scribble": "scribble",
+    "lineart": "lineart", "lineart_anime": "lineart",
+    "normal_bae": "normal", "normal": "normal",
+}
+
+
+def register_onnx_processor(name: str, onnx_path: str, kind: str = None, device=None,
+                            **kwargs) -> None:
+    """Register an ONNX-backed map processor under ``name``, its model on
+    ``device`` (CUDA unless given).
+
+    ``kind`` defaults from the name (depth/hed/lineart families,
+    mmcm controlnet.py:513 name list)."""
+    from ..onnx.runtime import OnnxModel
+
+    if kind is None:
+        kind = _NAME_TO_KIND.get(name)
+        if kind is None:
+            raise ValueError(
+                f"cannot infer processor kind from name {name!r}; pass "
+                f"kind= one of {sorted(_ONNX_KIND_DEFAULTS)}"
+            )
+    model = OnnxModel.from_file(onnx_path, device=device)
+    register_processor(name, OnnxImageProcessor(model, kind, **kwargs))

@@ -82,6 +82,9 @@ def _temporal_attn_entries(tk: str, path: Path) -> Iterator[KeyEntry]:
     yield f"{tk}.norm", (*path, "norm"), "norm"
     yield f"{tk}.proj_in", (*path, "proj_in"), "linear"
     yield f"{tk}.frame_emb_proj", (*path, "femb_proj"), "linear"
+    # need_spatial_position_emb: the sincos grid's per-pixel projection
+    # (named as the JAX parameter; skipped where the tree has none)
+    yield f"{tk}.spatial_emb_proj", (*path, "spatial_emb_proj"), "linear"
     yield from _tf_block_entries(f"{tk}.transformer_blocks.0", (*path, "block"))
     yield f"{tk}.proj_out", (*path, "proj_out"), "linear"
     yield f"{tk}.temporal_weight", (*path, "temporal_weight"), "raw"
@@ -109,7 +112,8 @@ def _resnet_entries(tk: str, path: Path, temb: bool = True) -> Iterator[KeyEntry
 
 def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
     """Keys of the UNet3D sites this port builds (the ReferenceNet fuse, the
-    IP-Adapter and FaceID projections included)."""
+    IP-Adapter and FaceID projections and the spatial position embedding
+    included)."""
     yield "conv_in", ("conv_in",), "conv2d"
     yield "time_embedding.linear_1", ("time_embedding", "linear_1"), "linear"
     yield "time_embedding.linear_2", ("time_embedding", "linear_2"), "linear"
@@ -118,6 +122,10 @@ def unet3d_key_map(cfg) -> Iterator[KeyEntry]:
         yield "frame_embedding.linear_2", ("frame_embedding", "linear_2"), "linear"
     if cfg.need_transformer_in and cfg.temporal_transformer:
         yield from _temporal_attn_entries("transformer_in", ("transformer_in",))
+    if cfg.need_spatial_position_emb:
+        for lin in ("linear_1", "linear_2"):
+            yield (f"spatial_position_embedding.{lin}", ("spatial_position_embedding", lin),
+                   "linear")
     ip = (cfg.ip_adapter_cross_attn, cfg.need_ip_adapter_face)
     for i, btype in enumerate(cfg.down_block_types):
         base = f"down_blocks.{i}"

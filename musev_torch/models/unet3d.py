@@ -17,8 +17,14 @@ after the mid block), the IP-Adapter and FaceID dual-KV cross-attention and
 the ReferenceNet self-attention embeddings (``refer_self_attn_embs``: written
 or read at every spatial site, down, mid and up in that order), and the pose
 preset's ControlNet residuals and PoseGuider embedding as inputs of
-``unet3d_apply``. Not ported yet, and absent from the config: the spatial
-position embedding and the sparse-causal temporal mask.
+``unet3d_apply``, the spatial position embedding
+(``need_spatial_position_emb``: a 2D sin-cos grid per latent resolution,
+projected by ``spatial_position_embedding`` and by each temporal
+transformer's ``spatial_emb_proj``, added to its pixel rows) and the
+sparse-causal temporal mask (``temporal_self_attn_mask``: both attentions
+of every temporal transformer under an additive (T, T) mask, on the plain
+masked attention). No preset turns the last two on; the config has every
+field of the JAX ``UNet3DConfig``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from torch import nn
 from ..ops.adain import adain_to_condition_frames
 from ..ops.index_ops import frame_mask, splice_with_index
 from .common import Conv2d, GroupNorm
-from .embeddings import TimestepEmbedding, sinusoidal_embedding
+from .embeddings import TimestepEmbedding, get_2d_sincos_pos_embed, sinusoidal_embedding
 from .unet_blocks import (
     Downsample,
     ReferEmbFuse,
@@ -43,6 +49,7 @@ from .unet_blocks import (
     TemporalConvLayer,
     TemporalTransformer,
     Upsample,
+    temporal_attn_bias,
 )
 
 
@@ -83,6 +90,15 @@ class UNet3DConfig:
     need_ip_adapter_face: bool = False  # the IPAdapterFaceID branch at every attn2
     ip_adapter_face_dim: int = 768
     keep_content_condition: bool = False
+    need_spatial_position_emb: bool = False  # hw sincos emb in temporal rows
+    # sparse-causal mask on temporal self-attention: None | "sparse_causal"
+    # (band of n_near previous frames + the first frame) | "sparse_causal_near"
+    # (band only); the reference declares it (temporal_transformer.py:101,
+    # attention_util.py:29-74) but never applies it, the JAX package wires it
+    temporal_self_attn_mask: Optional[str] = None
+    temporal_attn_n_near: int = 1
+    norm_spatial_length: bool = False
+    spatial_max_length: int = 2048
 
     @property
     def temb_dim(self) -> int:
@@ -123,6 +139,12 @@ def _spatial_transformer(cfg: UNet3DConfig, c: int) -> SpatialTransformer:
                               cfg.norm_num_groups, ip_dim, face_dim)
 
 
+def _temporal_transformer(cfg: UNet3DConfig, c: int) -> TemporalTransformer:
+    sp_dim = cfg.femb_dim if cfg.need_spatial_position_emb else None
+    return TemporalTransformer(c, cfg.attention_heads, cfg.femb_dim, cfg.norm_num_groups,
+                               spatial_emb_dim=sp_dim)
+
+
 class _Block(nn.Module):
     """One down/up/mid block: ModuleLists under the reference's key names."""
 
@@ -144,8 +166,7 @@ class _Block(nn.Module):
             ])
         if cross and temporal_attn:
             self.temp_attentions = nn.ModuleList([
-                TemporalTransformer(out_c, cfg.attention_heads, cfg.femb_dim, g)
-                for _ in range(n_attn)
+                _temporal_transformer(cfg, out_c) for _ in range(n_attn)
             ])
 
 
@@ -161,7 +182,10 @@ class UNet3D(nn.Module):
         if cfg.temporal_transformer:
             self.frame_embedding = TimestepEmbedding(ch0, cfg.femb_dim)
         if cfg.need_transformer_in and cfg.temporal_transformer:
-            self.transformer_in = TemporalTransformer(ch0, cfg.attention_heads, cfg.femb_dim, g)
+            self.transformer_in = _temporal_transformer(cfg, ch0)
+        if cfg.need_spatial_position_emb:
+            self.spatial_position_embedding = TimestepEmbedding(ch0 * 2, cfg.femb_dim)
+        self._spatial_grids: Dict[Tuple[int, int], torch.Tensor] = {}
         if cfg.need_refer_emb:
             self.first_refer_emb_attns = ReferEmbFuse(ch0, heads=cfg.attention_heads)
             self.mid_block_refer_emb_attns = ReferEmbFuse(chs[-1], heads=cfg.attention_heads)
@@ -189,9 +213,7 @@ class UNet3D(nn.Module):
         self.mid_block = _Block(cfg, [mid_c, mid_c], mid_c, False, False)
         self.mid_block.attentions = nn.ModuleList([_spatial_transformer(cfg, mid_c)])
         if cfg.temporal_transformer:
-            self.mid_block.temp_attentions = nn.ModuleList([
-                TemporalTransformer(mid_c, cfg.attention_heads, cfg.femb_dim, g)
-            ])
+            self.mid_block.temp_attentions = nn.ModuleList([_temporal_transformer(cfg, mid_c)])
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(chs))
@@ -209,6 +231,19 @@ class UNet3D(nn.Module):
 
         self.conv_norm_out = GroupNorm(g, ch0, cfg.norm_eps)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+
+    def spatial_grid(self, h: int, w: int, device) -> torch.Tensor:
+        """The (h*w, 2*ch0) sin-cos grid of an h x w latent, made once per
+        (h, w) and device (unet_3d_condition.py:955-971; recomputed per
+        scale instead of resized, which is exact for sincos grids)."""
+        key = (h, w, str(device))
+        if key not in self._spatial_grids:
+            cfg = self.cfg
+            grid = get_2d_sincos_pos_embed(cfg.block_out_channels[0] * 2, h, w,
+                                           norm_length=cfg.norm_spatial_length,
+                                           max_length=cfg.spatial_max_length)
+            self._spatial_grids[key] = torch.from_numpy(grid).to(device)
+        return self._spatial_grids[key]
 
 
 def prepare_unet_inputs(
@@ -326,10 +361,25 @@ def unet3d_core(
     def temporal_conv(mod, x):
         return mod(x, num_frames=num_frames, cond_mask=cond_mask) if use_temporal else x
 
+    bias = temporal_attn_bias(cfg.temporal_self_attn_mask, num_frames,
+                              cfg.temporal_attn_n_near, x.device) if use_temporal else None
+    spatial_embs: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def spatial_emb(h, w):
+        # the grid projected by spatial_position_embedding, once per call
+        # and resolution, in the activations' dtype
+        if not cfg.need_spatial_position_emb:
+            return None
+        if (h, w) not in spatial_embs:
+            grid = unet.spatial_grid(h, w, x.device).to(x.dtype)
+            spatial_embs[(h, w)] = unet.spatial_position_embedding(grid)
+        return spatial_embs[(h, w)]
+
     def temporal_attn(mod, x):
         if not use_temporal:
             return x
-        return mod(x, femb, num_frames=num_frames, cond_mask=cond_mask)
+        return mod(x, femb, num_frames=num_frames, cond_mask=cond_mask,
+                   spatial_emb=spatial_emb(x.shape[1], x.shape[2]), bias=bias)
 
     def adain(x):
         if (cfg.need_adain_temporal_cond and cfg.adain_fix and num_frames > 1

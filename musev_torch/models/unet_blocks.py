@@ -8,8 +8,11 @@ and regroup internally. Under classifier-free guidance the leading batch is
 plain self-attention (reference attention.py:319-334).
 
 Attention sites: self-attention over at most ``MAX_SHORT_SEQ`` tokens with no
-context (the temporal rows) goes to the packed short-attention kernel; every
-other site goes through ``ops.attention.sdpa`` (the flash kernel on CUDA):
+context and no mask (the temporal rows) goes to the packed short-attention
+kernel; the temporal rows under the sparse-causal mask go to the plain
+masked attention (``sdpa`` with a bias), as the JAX package sends them to
+XLA; every other site goes through ``ops.attention.sdpa`` (the flash kernel
+on CUDA):
 spatial self- and cross-attention, the IP-Adapter and FaceID dual-KV
 branches and the ReferenceNet fuse (``ReferEmbFuse``, KV = [reference
 tokens; own tokens]). A spatial block can also write its normalised
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
+from ..ops.attention_mask import sparse_causal_mask
 from ..ops.kernels.pivot import pivot_rows, unpivot_rows
 from ..ops.kernels.short_attention import MAX_SHORT_SEQ, short_attention_packed
 from .common import Conv2d, FeedForward, GroupNorm, LayerNorm, TemporalConv
@@ -124,16 +128,19 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 ip_context: Optional[torch.Tensor] = None, ip_scale: float = 1.0,
                 ip_face_context: Optional[torch.Tensor] = None,
-                ip_face_scale: float = 1.0) -> torch.Tensor:
+                ip_face_scale: float = 1.0, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, S, C); context (N, S_kv, C_kv) or None for self-attention;
         ip_context (N, S_ip, C_ip) image tokens for the IP branch;
-        ip_face_context (N, S_f, C_f) face tokens for the FaceID branch."""
+        ip_face_context (N, S_f, C_f) face tokens for the FaceID branch;
+        bias an additive logit bias broadcast to (N, H, S, S_kv) (the
+        sparse-causal temporal mask), which sends the call to the plain
+        masked attention as the JAX package sends it to XLA."""
         qp, kp, vp = self.project(x, context)
         if (context is None and ip_context is None and ip_face_context is None
-                and x.shape[1] <= MAX_SHORT_SEQ):
+                and bias is None and x.shape[1] <= MAX_SHORT_SEQ):
             return self.to_out[0](short_attention_packed(qp, kp, vp, self.heads))
         q, k, v = (t.unflatten(-1, (self.heads, -1)) for t in (qp, kp, vp))
-        out = sdpa(q, k, v)
+        out = sdpa(q, k, v, bias=bias)
         for ctx, scale, names in (
                 (ip_context, ip_scale, ("to_k_ip", "to_v_ip")),
                 (ip_face_context, ip_face_scale,
@@ -201,15 +208,19 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                self_attn=None, norm_out: Optional[list] = None, **ip) -> torch.Tensor:
+                self_attn=None, norm_out: Optional[list] = None,
+                bias: Optional[torch.Tensor] = None, **ip) -> torch.Tensor:
         """``self_attn``: replaces attn1 as ``(attn1, norm_h) -> out``;
         ``norm_out``: a list that receives attn1's normalised input (the
-        write mode); ``ip``: attn2's IP-Adapter and FaceID inputs."""
+        write mode); ``bias``: both attentions' logit bias (the temporal
+        blocks' sparse-causal mask); ``ip``: attn2's IP-Adapter and FaceID
+        inputs."""
         norm_h = self.norm1(x)
         if norm_out is not None:
             norm_out.append(norm_h)
-        x = x + (self.attn1(norm_h) if self_attn is None else self_attn(self.attn1, norm_h))
-        x = x + self.attn2(self.norm2(x), context=context, **ip)
+        x = x + (self.attn1(norm_h, bias=bias) if self_attn is None
+                 else self_attn(self.attn1, norm_h))
+        x = x + self.attn2(self.norm2(x), context=context, bias=bias, **ip)
         return x + self.ff(self.norm3(x))
 
 
@@ -287,31 +298,59 @@ class TemporalConvLayer(nn.Module):
         return v.reshape(bt, h, w, c)
 
 
+def temporal_attn_bias(mode: Optional[str], num_frames: int, n_near: int,
+                       device) -> Optional[torch.Tensor]:
+    """The (1, 1, T, T) additive sparse-causal mask of ``mode``
+    ("sparse_causal": a band of ``n_near`` previous frames and the first
+    frame; "sparse_causal_near": the band only), or None."""
+    if mode is None:
+        return None
+    if mode not in ("sparse_causal", "sparse_causal_near"):
+        raise ValueError(f"temporal_self_attn_mask {mode!r}: expected 'sparse_causal' or "
+                         "'sparse_causal_near'")
+    mask = sparse_causal_mask(num_frames, n_near=n_near, attend_first=mode == "sparse_causal")
+    return torch.from_numpy(mask).to(device)[None, None]
+
+
 class TemporalTransformer(nn.Module):
     """TransformerTemporalModel: attention over time per pixel, rows
-    (B*H*W, T, C) (reference temporal_transformer.py:57-308)."""
+    (B*H*W, T, C) (reference temporal_transformer.py:57-308).
+    ``spatial_emb_dim`` adds ``spatial_emb_proj``, which projects the
+    UNet's spatial position embedding and adds it to every pixel row."""
 
-    def __init__(self, channels: int, heads: int, femb_dim: int, groups: int = 32):
+    def __init__(self, channels: int, heads: int, femb_dim: int, groups: int = 32,
+                 spatial_emb_dim: Optional[int] = None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.frame_emb_proj = nn.Linear(femb_dim, channels)
+        if spatial_emb_dim is not None:
+            self.spatial_emb_proj = nn.Linear(spatial_emb_dim, channels)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, None, heads)]
         )
         self.proj_out = nn.Linear(channels, channels)
         self.temporal_weight = nn.Parameter(torch.full((1,), 1e-5))
 
-    def core(self, y: torch.Tensor, femb: torch.Tensor) -> torch.Tensor:
-        """y (B, S, T, C) pixel-major group-normalized rows; femb (B, T, femb_dim)."""
+    def core(self, y: torch.Tensor, femb: torch.Tensor,
+             spatial_emb: Optional[torch.Tensor] = None,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y (B, S, T, C) pixel-major group-normalized rows; femb (B, T,
+        femb_dim); spatial_emb (S, femb_dim), projected and added per pixel
+        row; bias the (1, 1, T, T) temporal mask of both attentions."""
         b, s, t, c = y.shape
         y = self.proj_in(y) + self.frame_emb_proj(F.silu(femb))[:, None].to(y.dtype)
-        rows = self.transformer_blocks[0](y.reshape(b * s, t, c))
+        if spatial_emb is not None and hasattr(self, "spatial_emb_proj"):
+            y = y + self.spatial_emb_proj(spatial_emb.to(y.dtype))[None, :, None, :]
+        rows = self.transformer_blocks[0](y.reshape(b * s, t, c), bias=bias)
         return self.proj_out(rows).reshape(b, s, t, c)
 
     def forward(self, x: torch.Tensor, femb: torch.Tensor, *, num_frames: int,
-                cond_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B*T, H, W, C); femb (B, T, femb_dim). GN runs per batch element
+                cond_mask: Optional[torch.Tensor] = None,
+                spatial_emb: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B*T, H, W, C); femb (B, T, femb_dim); spatial_emb (H*W,
+        femb_dim) and bias as ``core`` takes them. GN runs per batch element
         over the (T, H, W, C) video (temporal_transformer.py:117-119); its
         apply is fused into the pivot to pixel-major rows."""
         bt, h, w, c = x.shape
@@ -320,7 +359,7 @@ class TemporalTransformer(nn.Module):
         scale, shift = self.norm.scale_shift(v)
         scale, shift = (s[:, None].expand(b, num_frames, c) for s in (scale, shift))
         y = pivot_rows(x.reshape(b, num_frames, h * w, c), scale, shift)
-        y = self.core(y, femb)
+        y = self.core(y, femb, spatial_emb, bias)
         y = unpivot_rows(y).reshape(b, num_frames, h, w, c)
         if cond_mask is not None:
             y = y * cond_mask[None, :, None, None, None].to(y.dtype)

@@ -171,13 +171,6 @@ def test_video2video_cli_on_a_pose_video(tmp_path, captured):
 # what the error names)
 _REFUSED = [
     (0, t2v, ["--parallel", "fp"], "item 15"),
-    (5, t2v, ["--face_det_onnx", "det.onnx", "--face_rec_onnx", "rec.onnx"], "item 12"),
-    (6, t2v, ["--face_rec_onnx", "rec.onnx"], "item 12"),
-    (9, v2v, ["--processor_onnx", "depth=midas.onnx"], "item 12"),
-    (10, v2v, ["--dwpose_det_onnx", "det.onnx", "--dwpose_pose_onnx", "pose.onnx"], "item 12"),
-    (11, v2v, ["--sam_encoder_onnx", "enc.onnx", "--sam_decoder_onnx", "dec.onnx"], "item 12"),
-    (12, v2v, ["--face_detector_onnx", "face.onnx"], "item 12"),
-    (13, v2v, ["--controlnet_name", "dwpose_body_hand"], "item 12"),
     (14, v2v, ["--parallel", "dp"], "item 15"),
 ]
 
@@ -193,6 +186,96 @@ def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli,
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", *flags])
+
+
+# the ONNX flags, once refused (the ids keep the refused list's positions):
+# cli, flags, what the port raises before building its models, and what the
+# JAX CLI does with the same flags: "exits" before building, "raises" the
+# same error after building (it reads the ONNX files then), or "runs"
+# (the files of a processor it does not run are never read)
+_ONNX_FLAG_CASES = [
+    (5, "text2video", ["--face_det_onnx", "det.onnx", "--face_rec_onnx", "rec.onnx"],
+     FileNotFoundError, "raises"),
+    (6, "text2video", ["--face_rec_onnx", "rec.onnx"], SystemExit, "exits"),
+    (9, "video2video", ["--processor_onnx", "depth=midas.onnx"], FileNotFoundError, "raises"),
+    (10, "video2video", ["--dwpose_det_onnx", "det.onnx", "--dwpose_pose_onnx", "pose.onnx"],
+     FileNotFoundError, "runs"),
+    (11, "video2video", ["--sam_encoder_onnx", "enc.onnx", "--sam_decoder_onnx", "dec.onnx"],
+     FileNotFoundError, "runs"),
+    (12, "video2video", ["--face_detector_onnx", "face.onnx"], FileNotFoundError, "runs"),
+    (13, "video2video", ["--controlnet_name", "dwpose_body_hand"], SystemExit, "raises"),
+]
+
+
+@pytest.mark.parametrize("name,flags,error,jax_does", [
+    pytest.param(name, flags, error, jax_does, id=f"{name}-flags{i}-{error.__name__}")
+    for i, name, flags, error, jax_does in _ONNX_FLAG_CASES])
+def test_onnx_flags_act_as_the_jax_cli_before_models_are_built(monkeypatch, tmp_path, name,
+                                                               flags, error, jax_does):
+    """A lone ``--face_rec_onnx`` and a dwpose processor without its files
+    raise the JAX CLI's SystemExit; ONNX files that are not there raise
+    FileNotFoundError. The port raises before building its models, and
+    checks every ONNX file it is given; the JAX CLI reads the face pair,
+    ``--processor_onnx`` and the chosen processor's files after building,
+    and never reads the others."""
+    import musev_tpu.pipelines.loader as j_loader
+    import musev_tpu.pipelines.pipeline as j_pipeline
+
+    (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
+    argv = ["--test_data_path", str(tmp_path / "tasks.csv"), "--output_dir", str(tmp_path)]
+    seen = []
+
+    def built(*a, **k):
+        raise AssertionError("models were built")
+
+    monkeypatch.setattr(loader, "build_models", built)
+    with pytest.raises(error):
+        {"text2video": t2v, "video2video": v2v}[name].main([*argv, "--device", "cpu", *flags])
+
+    monkeypatch.setattr(j_loader, "build_models", lambda *a, **k: seen.append("built"))
+    monkeypatch.setattr(j_pipeline, "MusevPipeline", lambda *a, **k: None)
+    jax_cli = {"text2video": j_t2v, "video2video": j_v2v}[name]
+    if jax_does == "runs":
+        jax_cli.main([*argv, *flags])
+    else:
+        with pytest.raises(error):
+            jax_cli.main([*argv, *flags])
+    assert seen == ([] if jax_does == "exits" else ["built"])
+
+
+@pytest.mark.parametrize("controlnet,jax_does", [("canny", "runs"), ("face_detector", "raises")])
+def test_onnx_environment_defaults_are_read_only_by_their_stage(monkeypatch, tmp_path, controlnet,
+                                                                jax_does):
+    """``MUSEV_*`` variables that name files that are not there stop a run
+    only where its ``--controlnet_name`` reads them: a canny run builds its
+    models, as the JAX CLI's does; a face_detector run raises
+    FileNotFoundError before building (the JAX CLI raises it after)."""
+    import musev_tpu.pipelines.loader as j_loader
+    import musev_tpu.pipelines.pipeline as j_pipeline
+
+    for name in ONNX_ENV:
+        monkeypatch.setenv(name, str(tmp_path / f"{name.lower()}.onnx"))
+    (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
+    argv = ["--test_data_path", str(tmp_path / "tasks.csv"), "--output_dir", str(tmp_path),
+            "--controlnet_name", controlnet]
+
+    def built(*a, **k):
+        raise AssertionError("models were built")
+
+    monkeypatch.setattr(loader, "build_models", built)
+    port_error = AssertionError if jax_does == "runs" else FileNotFoundError
+    with pytest.raises(port_error, match="models were built" if jax_does == "runs" else "onnx"):
+        v2v.main([*argv, "--device", "cpu"])
+
+    seen = []
+    monkeypatch.setattr(j_loader, "build_models", lambda *a, **k: seen.append("built"))
+    monkeypatch.setattr(j_pipeline, "MusevPipeline", lambda *a, **k: None)
+    if jax_does == "runs":
+        j_v2v.main(argv)
+    else:
+        with pytest.raises(FileNotFoundError):
+            j_v2v.main(argv)
+    assert seen == ["built"]
 
 
 def test_face_checkpoint_flag_turns_on_faceid(monkeypatch, tmp_path):

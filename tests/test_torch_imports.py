@@ -4,7 +4,10 @@ A fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``musev_tpu`` imports every module of ``musev_torch``. The same finder
 refuses the packages the GPU machine may lack (``yaml``, ``PIL``,
 ``transformers``, ``safetensors``): the port imports them only on the paths
-that need them, so a CSV task file still loads.
+that need them, so a CSV task file still loads. OpenCV, ``onnx`` and
+``onnxruntime`` are refused too: the ONNX executor and the host stages
+(dwpose, face embedding, SAM) have their own code for what the reference
+and the JAX package take from them.
 """
 
 import subprocess
@@ -16,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 GUARDED = """
 import importlib, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "musev_tpu", "yaml", "PIL", "transformers", "safetensors")
+REFUSED = ("jax", "jaxlib", "musev_tpu", "yaml", "PIL", "transformers", "safetensors", "cv2",
+           "onnx", "onnxruntime")
 
 
 class Refuse:
@@ -32,7 +36,8 @@ import musev_torch
 names = sorted(m.name for m in pkgutil.walk_packages(musev_torch.__path__, "musev_torch."))
 assert {"musev_torch.schedulers.ancestral", "musev_torch.schedulers.lcm",
         "musev_torch.schedulers.dpm_multistep", "musev_torch.models.lora",
-        "musev_torch.utils.textual_inversion"} <= set(names), names
+        "musev_torch.utils.textual_inversion", "musev_torch.onnx.runtime",
+        "musev_torch.io.dwpose", "musev_torch.io.face_emb", "musev_torch.io.sam"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
@@ -51,5 +56,5 @@ def test_port_imports_without_jax_or_optional_packages(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, loaded = out.stdout.split(" ", 1)
-    assert int(n) >= 54
+    assert int(n) >= 61
     assert "'prompt': 'a cat walking'" in loaded

@@ -212,10 +212,79 @@ def test_state_dict_keys_match_reference_keys(full):
 
 
 def test_unet_config_refuses_unported_options():
-    """The FaceID branch is ported; the spatial position embedding and the
-    sparse-causal temporal mask (ROADMAP queue 1, item 11) are not, and the
-    config refuses them."""
-    assert UNet3DConfig(**TINY_UNET, need_ip_adapter_face=True).need_ip_adapter_face
-    for option in ("need_spatial_position_emb", "temporal_self_attn_mask"):
-        with pytest.raises(TypeError):
-            UNet3DConfig(**TINY_UNET, **{option: True})
+    """Every option of the JAX ``UNet3DConfig`` is ported now (FaceID, the
+    spatial position embedding and the sparse-causal temporal mask last),
+    with the JAX defaults; what the JAX config lacks is still refused, and
+    so is an unknown mask name."""
+    import dataclasses
+
+    jfields = {f.name: f.default for f in dataclasses.fields(JUNetConfig)}
+    fields = {f.name: f.default for f in dataclasses.fields(UNet3DConfig)}
+    assert fields == jfields
+    cfg = UNet3DConfig(**TINY_UNET, need_ip_adapter_face=True, need_spatial_position_emb=True,
+                       temporal_self_attn_mask="sparse_causal")
+    assert cfg.need_ip_adapter_face and cfg.need_spatial_position_emb
+    with pytest.raises(TypeError):
+        UNet3DConfig(**TINY_UNET, no_such_option=True)
+    unet = UNet3D(UNet3DConfig(**TINY_UNET, temporal_self_attn_mask="causal")).eval()
+    with pytest.raises(ValueError, match="sparse_causal"):
+        unet3d_apply(unet, torch.zeros(1, 2, 8, 8, 4), 1.0, torch.zeros(1, 7, 24))
+
+
+@pytest.fixture(scope="module")
+def spatial_unets():
+    """A narrow UNet with the spatial position embedding (every temporal
+    transformer's ``spatial_emb_proj`` and the UNet's
+    ``spatial_position_embedding``), weights perturbed as ``unets``."""
+    jcfg = JUNetConfig(**TINY_UNET, need_spatial_position_emb=True)
+    params = init_unet3d(jax.random.PRNGKey(5), jcfg)
+    rng = np.random.default_rng(6)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape, dtype=np.float32),
+        params,
+    )
+    cfg = UNet3DConfig(**TINY_UNET, need_spatial_position_emb=True)
+    state = convert.unet3d_from_jax(params, cfg)
+    assert "spatial_position_embedding.linear_2.weight" in state
+    assert "down_blocks.0.temp_attentions.0.spatial_emb_proj.weight" in state
+    return params, _port(UNet3D, cfg, state)
+
+
+@pytest.mark.parametrize("mask,n_near,norm_length", [
+    ("sparse_causal", 1, False), ("sparse_causal_near", 2, True), (None, 1, False)])
+def test_unet3d_sparse_causal_mask_and_spatial_emb_match_jax(spatial_unets, mask, n_near,
+                                                             norm_length):
+    """Item 11: the sparse-causal mask on both temporal attentions (the JAX
+    package pads 4 frames to 8 under its mask; the port masks the 4) and
+    the spatial position embedding, on converted weights."""
+    params, unet = spatial_unets
+    flags = dict(need_spatial_position_emb=True, temporal_self_attn_mask=mask,
+                 temporal_attn_n_near=n_near, norm_spatial_length=norm_length,
+                 spatial_max_length=64)
+    cfg = JUNetConfig(**TINY_UNET, **flags)
+    port = UNet3D(UNet3DConfig(**TINY_UNET, **flags)).eval()
+    port.load_state_dict(unet.state_dict(), strict=True)
+    sample, cond, text = _rand(13, 2, 3, 8, 8, 4), _rand(14, 2, 1, 8, 8, 4), _rand(15, 2, 7, 24)
+    kw = dict(do_cfg=True, gen_index=(1, 2, 3), cond_index=(0,))
+    want = j_unet3d_apply(params, cfg, jnp.asarray(sample), jnp.asarray(641.0),
+                          jnp.asarray(text), condition_latents=jnp.asarray(cond), **kw)
+    with torch.no_grad():
+        got = unet3d_apply(port, _t(sample), 641.0, _t(text), condition_latents=_t(cond), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
+    if mask is not None:  # the mask changes the call (future frames are cut off)
+        with torch.no_grad():
+            free = unet3d_apply(unet, _t(sample), 641.0, _t(text), condition_latents=_t(cond),
+                                **kw)
+        assert np.abs(free.numpy() - got.numpy()).max() > 1e-4
+
+
+def test_sparse_causal_mask_and_sincos_grid_are_the_jax_copies():
+    from musev_tpu.models.embeddings import get_2d_sincos_pos_embed as j_grid
+    from musev_tpu.ops.attention_mask import sparse_causal_mask as j_mask
+    from musev_torch.models.embeddings import get_2d_sincos_pos_embed
+    from musev_torch.ops.attention_mask import sparse_causal_mask
+
+    for t, n, first in ((5, 1, True), (13, 2, False), (1, 1, True)):
+        np.testing.assert_array_equal(sparse_causal_mask(t, n, first), j_mask(t, n, first))
+    for args in ((32, 9, 9, False, 2048), (40, 4, 6, True, 2048), (8, 5, 3, True, 4)):
+        np.testing.assert_array_equal(get_2d_sincos_pos_embed(*args), j_grid(*args))
