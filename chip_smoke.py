@@ -134,7 +134,46 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    denoise flags, is phase onnx's dwpose clip now.) Each part reports its
    clip seconds (for (b) and (c) those of its one profiled run), peak
    memory, launches by kernel and the device's busy share; its kernels
-   must launch.
+   must launch;
+10. train, this slice's path: (1) the training route of attention
+   (``ops.attention.mem_efficient_sdpa``: the flash kernel with its
+   softmax stats forward, a q-chunked float32 backward) at the L0 self and
+   ReferenceOnly cond sites of one clip of 13 frames, out and the grads of
+   q, k and v in bf16 against autograd through the plain attention in
+   float32 (relative L2 <= TOL_REL_L2), timed forward and forward +
+   backward beside SDPA with autograd; the pivots under autograd against
+   the plain path (K5, K7 and dx bit for bit, K6's dscale and dshift
+   within float32 rounding); K4 under autograd (its kernel forward, a
+   float32 recompute backward) at the L0 temporal site against autograd
+   through its plain version in float32 (relative L2 <= TOL_REL_L2), timed
+   beside it; (2) the ``musev`` UNet at full width (its
+   parameters counted on the meta device) as float32 master weights,
+   ``train_step_opt`` (AdamW, clipping, per-layer grad checkpointing) under
+   bf16 autocast on one clip of 1 + 12 seeded latent frames of 72x72 and a
+   seeded (1, 77, 768) text embedding, TRAIN_STEPS steps timed, a fourth
+   profiled: fails unless every loss and grad is finite, the sampled master
+   weights moved, and flash with stats, K4, K6 and K7 launched in the steps
+   and K5 in their backward; prints the step times, peak memory and busy
+   share; (3) the masters and the AdamW state saved with
+   ``utils.checkpoint.save_state`` and restored: the step after the round
+   trip must equal the step without it bit for bit (deterministic
+   algorithms on for both); (4) one ``super_train_step`` on the
+   ``musev_referencenet_pose`` bundle (UNet, ReferenceNet, IP projection,
+   ControlNet; float32 masters, bf16 autocast) with 13 seeded control
+   images of 576^2: every grad finite, every param the loss reaches (its
+   grad is not None) with a nonzero grad and each module reached, and the
+   sampled params after the step equal to p - lr * g bit for bit (the share
+   that moved, and the share of the rest whose step is under half their
+   float32 spacing, are printed); (5) a
+   narrow UNet's loss and grads on the card under autocast against float32
+   on the CPU, relative L2 < 5e-2;
+11. serve: ``serve.app.OnlineInference.online_t2v_inference`` on the
+   ``musev`` models, a request of 24 frames at 576^2 (two shots of 12):
+   its frames must equal ``MusevPipeline.text2video`` called directly with
+   the same arguments within the ``musev`` path's rerun spread, and the
+   path's kernels must launch; then ``utils.inversion.ddim_inversion`` of
+   the clip's latents over 10 steps with the UNet's noise prediction:
+   finite.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last the line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -149,7 +188,6 @@ import importlib
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -226,13 +264,13 @@ V2V_ARGS = dict(
 )
 VIDEO_SHAPE = (1, 25, 576, 576, 3)  # the JAX pipeline's: condition frame + 24
 KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention",
-           "pivot_rows", "pivot_rows_gn", "unpivot_rows")
+           "pivot_rows", "pivot_rows_gn", "unpivot_rows", "flash_attention_train")
 # the CUDA functions each wrapper launches, as the profiler names them
 FLASH_FUNCS = ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel")
 DEVICE_FUNCS = dict(flash_attention=FLASH_FUNCS, flash_attention_parts=FLASH_FUNCS,
                     flash_stream=("flash_stream_kernel",), short_attention=("short_attn_kernel",),
                     pivot_rows=("relayout_kernel",), pivot_rows_gn=("relayout_kernel",),
-                    unpivot_rows=("relayout_kernel",))
+                    unpivot_rows=("relayout_kernel",), flash_attention_train=FLASH_FUNCS)
 STREAM_HEAD_DIMS = (40, 64, 80, 160)  # one per instance
 # Kernel against plain version, both scaled to what is compared: the kernels
 # round P and the output to bf16 (8-bit mantissa, relative rounding error up
@@ -270,6 +308,22 @@ DEPTH_GREY = 1
 # the UNet options of ROADMAP item 11, driven by phase onnx and phase reference
 ITEM11_FLAGS = dict(temporal_self_attn_mask="sparse_causal", temporal_attn_n_near=1,
                     need_spatial_position_emb=True)
+# phase train: the training attention at the L0 sites of one clip of 1 + 12
+# frames (no CFG), the clip's latents, the AdamW steps taken and timed; the
+# forward and backward of attention do about 3.5 times the forward's
+# operations (the backward's five products against the forward's two)
+TRAIN_ATTN_SITES = [
+    ("L0 self-attn (training)", "qkv", 13, 8, 5184, 5184, 40),
+    ("L0 ReferenceOnly cond half (training)", "q|kv", 13, 8, 5184, 10368, 40),
+]
+TRAIN_CLIP = (1, 13, 72, 72, 4)
+TRAIN_STEPS = 3
+TRAIN_FWD_BWD_OPS = 3.5
+TRAIN_NARROW = dict(block_out_channels=(80, 160, 320, 320), layers_per_block=1,
+                    cross_attention_dim=64, attention_heads=2, norm_num_groups=8)
+# phase serve: the request's frames, the DDIM inversion's steps
+SERVE_FRAMES = 24
+INVERSION_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -390,7 +444,10 @@ def bound_ms(flops: float, nbytes: float):
 
 def kernel_counters():
     """Each kernel's (wrapper, launch-count attribute) by its name in the
-    ``kernels`` line; ``pivot_rows`` counts K5 and K6 apart."""
+    ``kernels`` line; ``pivot_rows`` counts K5 and K6 apart, and the flash
+    kernel's launches with stats under autograd (the training route) are
+    ``MemEfficientAttention``'s."""
+    from musev_torch.ops.attention import MemEfficientAttention
     from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_parts
     from musev_torch.ops.kernels.flash_stream import flash_stream
     from musev_torch.ops.kernels.pivot import pivot_rows, unpivot_rows
@@ -399,7 +456,7 @@ def kernel_counters():
     return dict(zip(KERNELS, ((flash_attention, "launches"), (flash_attention_parts, "launches"),
                               (flash_stream, "launches"), (short_attention_packed, "launches"),
                               (pivot_rows, "launches"), (pivot_rows, "gn_launches"),
-                              (unpivot_rows, "launches"))))
+                              (unpivot_rows, "launches"), (MemEfficientAttention, "launches"))))
 
 
 def zero_counts() -> None:
@@ -717,34 +774,6 @@ def to_uint8(videos):
     return (videos[0] * 255).astype(np.uint8)
 
 
-SAFETENSORS_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
-
-
-def write_safetensors(path: Path, state_dict: dict) -> None:
-    """The safetensors format, written tensor by tensor: a little-endian u64
-    header size, a JSON header of each tensor's dtype, shape and byte range
-    (padded with spaces to 8 bytes), then the raw bytes in that order; the
-    port reads the format itself, so its proof writes it without the
-    ``safetensors`` package too."""
-    import torch
-
-    header, offset = {}, 0
-    for name, t in state_dict.items():
-        nbytes = t.numel() * t.element_size()
-        header[name] = dict(dtype=SAFETENSORS_DTYPES[str(t.dtype).split(".")[-1]],
-                            shape=list(t.shape), data_offsets=[offset, offset + nbytes])
-        offset += nbytes
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for t in state_dict.values():  # the standard layout, whatever the memory format
-            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
-
-
-
-
 def importable(name: str) -> bool:
     try:
         importlib.import_module(name)
@@ -861,6 +890,7 @@ def phase_cli(torch, tmp: Path, rerun_frames: int, need: tuple):
     from musev_torch.io.video import native_available, native_error
     from musev_torch.pipelines.loader import build_models
     from musev_torch.pipelines.pipeline import MusevPipeline
+    from musev_torch.utils.checkpoint import write_safetensors
 
     packages = {name: importable(name) for name in ("safetensors", "yaml", "PIL", "transformers")}
     native = native_available()
@@ -927,7 +957,8 @@ def phase_cli(torch, tmp: Path, rerun_frames: int, need: tuple):
     if wrong:
         fail(f"the loaded weights differ from the seeds' at {len(wrong)} tensors")
     record = dict(packages=packages, native_video=native, video_writer=writer,
-                  safetensors_writer="chip_smoke.write_safetensors", checkpoint_gb=gb,
+                  safetensors_writer="musev_torch.utils.checkpoint.write_safetensors",
+                  checkpoint_gb=gb,
                   write_checkpoints_s=write_s, load_checkpoints_s=load_s, cli_s=cli_s,
                   clip_s=clip_s, peak_gb=peak_gb, launches=launches,
                   frames=list(frames.shape), max_frame_diff=diff, rerun_frame_change=rerun_frames,
@@ -989,6 +1020,7 @@ def phase_adapters(torch, tmp: Path, files: dict, need: tuple) -> dict:
     from musev_torch.models.sd_weights import load_safetensors
     from musev_torch.pipelines.loader import build_models
     from musev_torch.pipelines.pipeline import MusevPipeline
+    from musev_torch.utils.checkpoint import write_safetensors
 
     args = dict(T2V_ARGS, video_num_inference_steps=ADAPTER_STEPS,
                 num_inference_steps=ADAPTER_STEPS, negative_prompt=resolve_negative_prompt("V2"))
@@ -1382,6 +1414,7 @@ def option_ip_plus(torch, tmp: Path, image, face_emb, need) -> dict:
     from musev_torch.models.sd_weights import ip_adapter_site_paths
     from musev_torch.pipelines.loader import build_models
     from musev_torch.pipelines.pipeline import MusevPipeline
+    from musev_torch.utils.checkpoint import write_safetensors
 
     def preset(**paths):
         p = get_model_preset("musev_referencenet", ip_adapter_model_name="IPAdapterPlus",
@@ -1939,6 +1972,441 @@ def phase_reference(torch):
     return errs
 
 
+def rel_l2_parts(torch, parts) -> float:
+    """Relative L2 of ``got`` against ``want`` over (got, want) pairs taken together."""
+    num = sum(((g.float() - w.float()) ** 2).sum().item() for g, w in parts)
+    den = sum((w.float() ** 2).sum().item() for _, w in parts)
+    return (num / den) ** 0.5
+
+
+def train_attention(torch, gen) -> list:
+    """The training route of attention (``mem_efficient_sdpa``: the flash
+    kernel with its stats forward, the chunked float32 backward) at
+    TRAIN_ATTN_SITES in bf16: out, dq, dk and dv against autograd through
+    the plain attention in float32 (batch row by batch row, for its logits'
+    memory), relative L2 <= TOL_REL_L2; the forward's and forward +
+    backward's times beside SDPA's with autograd, and their bounds. Returns
+    the kernel rows of ``flash_attention_train``."""
+    import torch.nn.functional as F
+
+    from musev_torch.ops.attention import mem_efficient_sdpa
+    from musev_torch.ops.kernels.flash_attention import flash_attention_plain
+
+    rows = []
+    for site, proj, b, h, sq, sk, d in TRAIN_ATTN_SITES:
+        q, k, v = (x.detach().requires_grad_() for x in
+                   flash_inputs(torch, gen, proj, b, h, sq, sk, d))
+        do = torch.randn(b, sq, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
+        out = mem_efficient_sdpa(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        pairs = {name: [] for name in ("out", "dq", "dk", "dv")}
+        for i in range(b):
+            qi, ki, vi = (x[i:i + 1].detach().float().requires_grad_() for x in (q, k, v))
+            oi = flash_attention_plain(qi, ki, vi)
+            want = (oi, *torch.autograd.grad(oi, (qi, ki, vi), do[i:i + 1].float()))
+            for name, got, w in zip(pairs, (out, *grads), want):
+                pairs[name].append((got[i:i + 1], w.detach()))
+            del qi, ki, vi, oi, want
+        errs = {name: rel_l2_parts(torch, parts) for name, parts in pairs.items()}
+        max_err = max((g.float() - w).abs().max().item() for g, w in pairs["out"])
+        del pairs, out, grads
+        print(f"flash_attention_train {site}: relative L2 against float32 autograd through the "
+              f"plain path {errs} (tol {TOL_REL_L2})")
+        if not all(e <= TOL_REL_L2 for e in errs.values()):
+            fail(f"the training attention's grads disagree with the plain path at {site}")
+
+        def fwd():
+            return mem_efficient_sdpa(q, k, v)
+
+        def fwd_bwd():
+            return torch.autograd.grad(mem_efficient_sdpa(q, k, v), (q, k, v), do)
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (q, k, v), dot)
+
+        def plain_all():
+            with torch.no_grad():
+                for i in range(b):
+                    flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+
+        t = timed(torch, "flash_attention_train", fwd)
+        with torch.no_grad():
+            lib = library_timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        fb_dev, fb_seen = device_ms(torch, fwd_bwd)
+        lib_fb_dev, lib_fb_seen = device_ms(torch, sdpa_fwd_bwd)
+        flops = 4.0 * b * h * sq * sk * d
+        bms, by = bound_ms(flops, 2.0 * b * h * d * (2 * sq + 2 * sk))
+        fb_bms, fb_by = bound_ms(TRAIN_FWD_BWD_OPS * flops, 2.0 * b * h * d * (4 * sq + 4 * sk))
+        row = dict(site=site, projection=proj, shape=[b, h, sq, sk, d], rel_l2=errs,
+                   max_abs_err=max_err, **t, plain_ms=cuda_ms(torch, plain_all, warmup=1, iters=3),
+                   **lib, bound_ms=bms, bound_by=by,
+                   fwd_bwd_ms=cuda_ms(torch, fwd_bwd), fwd_bwd_device_ms=fb_dev,
+                   fwd_bwd_device_records=fb_seen, sdpa_fwd_bwd_ms=cuda_ms(torch, sdpa_fwd_bwd),
+                   sdpa_fwd_bwd_device_ms=lib_fb_dev, sdpa_fwd_bwd_device_records=lib_fb_seen,
+                   fwd_bwd_bound_ms=fb_bms, fwd_bwd_bound_by=fb_by)
+        rows.append(row)
+        print(f"flash_attention_train {site} (B,H,sq,sk,d)={(b, h, sq, sk, d)}: forward "
+              f"{row['ms']:.3f} ms, device {fmt_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} "
+              f"ms, sdpa {row['library_ms']:.3f} ms, bound {bms:.3f} ms ({by}); forward + "
+              f"backward {row['fwd_bwd_ms']:.3f} ms, device {fmt_ms(fb_dev)}, sdpa "
+              f"{row['sdpa_fwd_bwd_ms']:.3f} ms, device {fmt_ms(lib_fb_dev)}, bound "
+              f"{fb_bms:.3f} ms ({fb_by})")
+        del q, k, v, do, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_pivots(torch, gen) -> dict:
+    """The pivots under autograd at the training path's L0 temporal site
+    (one clip of 13 frames): K5 (backward K7), K7 (backward K5) and K6
+    (backward K7 and float32 sums) against autograd through the plain
+    versions; the moves and dx bit for bit, K6's dscale and dshift within
+    float32 rounding of their sums over the pixels (relative L2 1e-5)."""
+    from musev_torch.ops.kernels.pivot import pivot_rows, pivot_rows_plain, unpivot_rows
+
+    b, t, hw, c = 1, TRAIN_CLIP[1], 72 * 72, 320
+    x = torch.randn(b, t, hw, c, device="cuda", generator=gen, dtype=torch.bfloat16)
+    scale, shift = (torch.randn(b, 1, c, device="cuda", generator=gen) for _ in range(2))
+    g = torch.randn(b, hw, t, c, device="cuda", generator=gen, dtype=torch.bfloat16)
+    record = {}
+    for kind in ("pivot", "unpivot", "pivot_gn"):
+        src = x.transpose(1, 2).contiguous() if kind == "unpivot" else x
+        gy = g.transpose(1, 2).contiguous() if kind == "unpivot" else g
+
+        def run(plain):
+            xs = src.clone().requires_grad_()
+            ss, hs = scale.clone().requires_grad_(), shift.clone().requires_grad_()
+            if kind == "pivot":
+                y = pivot_rows_plain(xs) if plain else pivot_rows(xs)
+            elif kind == "unpivot":
+                y = xs.transpose(1, 2).contiguous() if plain else unpivot_rows(xs)
+            else:
+                y = (pivot_rows_plain if plain else pivot_rows)(
+                    xs, ss.expand(b, t, c), hs.expand(b, t, c))
+            y.backward(gy)
+            return xs.grad, ss.grad, hs.grad
+
+        (dx, ds, dh), (dx_w, ds_w, dh_w) = run(False), run(True)
+        rec = dict(dx_bit_for_bit=torch.equal(dx, dx_w))
+        if kind == "pivot_gn":
+            rec.update(dscale_rel_l2=rel_l2(torch, ds, ds_w), dshift_rel_l2=rel_l2(torch, dh, dh_w))
+        record[kind] = rec
+        ok = rec["dx_bit_for_bit"] and all(v <= 1e-5 for k_, v in rec.items() if "rel" in k_)
+        print(f"train pivots {kind} (b,T,HW,C)={(b, t, hw, c)} under autograd: {rec}")
+        if not ok:
+            fail(f"the {kind} grads disagree with autograd through the plain path")
+    return record
+
+
+def train_short(torch, gen) -> dict:
+    """K4 under autograd (``_ShortAttention``: the kernel's forward, a
+    float32 recompute of the plain version for the backward) at the
+    training path's L0 temporal site (one clip: 72x72 pixel rows of 13
+    frames, C 320, 8 heads; views of one fused projection): out and the
+    projection's grad against autograd through the plain version in float32,
+    relative L2 <= TOL_REL_L2; forward + backward timed beside autograd
+    through the plain version."""
+    from musev_torch.ops.kernels.short_attention import (
+        short_attention_packed,
+        short_attention_plain,
+    )
+
+    n, t, c, heads = 72 * 72, TRAIN_CLIP[1], 320, 8
+    qkv = torch.randn(n, t, 3 * c, device="cuda", generator=gen,
+                      dtype=torch.bfloat16).requires_grad_()
+    do = torch.randn(n, t, c, device="cuda", generator=gen, dtype=torch.bfloat16)
+    out = short_attention_packed(*qkv.chunk(3, dim=-1), heads)
+    (grad,) = torch.autograd.grad(out, qkv, do)
+    qkv32 = qkv.detach().float().requires_grad_()
+    want = short_attention_plain(*qkv32.chunk(3, dim=-1), heads)
+    (want_grad,) = torch.autograd.grad(want, qkv32, do.float())
+    rec = dict(shape=[n, t, c, heads], kind=type(out.grad_fn).__name__,
+               out_rel_l2=rel_l2(torch, out, want), grad_rel_l2=rel_l2(torch, grad, want_grad))
+
+    def fwd_bwd(fn, x, g):
+        return torch.autograd.grad(fn(*x.chunk(3, dim=-1), heads), x, g)
+
+    rec.update(fwd_bwd_ms=cuda_ms(torch, lambda: fwd_bwd(short_attention_packed, qkv, do)),
+               plain_fwd_bwd_ms=cuda_ms(torch, lambda: fwd_bwd(short_attention_plain, qkv, do)))
+    print(f"train short_attention (N,T,C,heads)={(n, t, c, heads)} under autograd: {rec}")
+    if rec["kind"] != "_ShortAttentionBackward" or not max(
+            rec["out_rel_l2"], rec["grad_rel_l2"]) <= TOL_REL_L2:
+        fail(f"K4 under autograd disagrees with autograd through the plain version: {rec}")
+    return rec
+
+
+def train_narrow(torch) -> dict:
+    """A narrow UNet's loss and grads on the card (float32 masters, the loss
+    under bf16 autocast; 32x32 latents, so the L0 attention takes the flash
+    training route) against float32 on the CPU, the same draws: relative L2
+    < 5e-2, the gate of phase reference."""
+    from musev_torch.models.unet3d import UNet3D, UNet3DConfig
+    from musev_torch.pipelines.loader import init_random_
+    from musev_torch.train import TrainSpec, diffusion_loss
+
+    cfg = UNet3DConfig(**TRAIN_NARROW)
+    cpu = UNet3D(cfg)
+    init_random_(cpu, torch.Generator().manual_seed(1), scale=0.05)
+    gpu = UNet3D(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    data = torch.Generator().manual_seed(2)
+    latents = torch.randn(1, 5, 32, 32, 4, generator=data)
+    text = torch.randn(1, 9, 64, generator=data)
+    spec = TrainSpec(unet_cfg=cfg, n_vision_cond=1)
+    want = diffusion_loss(cpu, spec, latents, text, torch.Generator().manual_seed(3))
+    want.backward()
+    with torch.autocast("cuda", torch.bfloat16):
+        got = diffusion_loss(gpu, spec, latents.cuda(), text.cuda(),
+                             torch.Generator().manual_seed(3))
+    got.backward()
+    loss_err = abs(got.item() - want.item()) / abs(want.item())
+    grad_err = rel_l2_parts(torch, [(g.grad.cpu(), c.grad) for g, c in
+                                    zip(gpu.parameters(), cpu.parameters())])
+    print(f"phase train (5): narrow UNet loss and grads, card under bf16 autocast against "
+          f"float32 on the CPU: loss {loss_err:.2e}, grads relative L2 {grad_err:.2e} (tol 5e-2)")
+    if not (loss_err < 5e-2 and grad_err < 5e-2):
+        fail(f"the narrow UNet's training on the card disagrees with the CPU: {grad_err}")
+    return dict(loss_rel_err=loss_err, grads_rel_l2=grad_err)
+
+
+def phase_train(torch, tmp: Path) -> dict:
+    """This slice's path (see the module docstring, phase 10). Returns its
+    record; ``launches`` are those of the TRAIN_STEPS timed steps."""
+    import math
+
+    from musev_torch.models.unet3d import UNet3D
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.train import (
+        SuperTrainSpec,
+        TrainSpec,
+        make_optimizer,
+        super_train_step,
+        train_step_opt,
+    )
+    from musev_torch.utils.checkpoint import restore_state, save_state
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    record = dict(attention=train_attention(torch, gen), pivots=train_pivots(torch, gen),
+                  short=train_short(torch, gen))
+
+    # (2) the musev UNet at full width: float32 masters, the loss under autocast
+    unet = build_models("musev", seed=0).unet.float()
+    torch.cuda.empty_cache()
+    cfg = unet.cfg
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in UNet3D(cfg).parameters())
+    data = torch.Generator().manual_seed(12)
+    latents = torch.randn(TRAIN_CLIP, generator=data).cuda()
+    text = torch.randn(1, 77, cfg.cross_attention_dim, generator=data).cuda()
+    spec = TrainSpec(unet_cfg=cfg, n_vision_cond=1)
+    opt = make_optimizer(spec, unet.parameters())
+    params = list(unet.parameters())
+    sample = params[::16]
+    before = [p.detach().clone() for p in sample]
+
+    def step(seed):
+        with torch.autocast("cuda", torch.bfloat16):
+            return train_step_opt(unet, opt, spec, latents, text,
+                                  torch.Generator().manual_seed(seed))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.time()
+        losses.append(step(100 + i).item())
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(p.grad).all()) for p in params)
+    moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, sample))
+    del before
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"phase train (2): musev UNet {n_params / 1e9:.3f} B params (meta count), float32 "
+          f"masters, AdamW with clipping, clip {TRAIN_CLIP}: losses {losses}, step times "
+          f"{[round(x, 3) for x in times]} s (median {statistics.median(times):.3f}), peak "
+          f"{peak_gb:.1f} GB, launches per step {per_step}; finite {finite}, {moved} of "
+          f"{len(sample)} sampled params moved")
+    if not finite:
+        fail("a training loss or grad is not finite")
+    if moved != len(sample):
+        fail(f"the AdamW steps left {len(sample) - moved} of {len(sample)} sampled params")
+    for name in ("flash_attention_train", "short_attention", "pivot_rows_gn", "unpivot_rows",
+                 "pivot_rows"):
+        if launches[name] <= 0:
+            fail(f"the training steps launched {name} no time")
+    profile, _ = profile_path(torch, lambda: step(200), {})
+
+    # (3) the checkpoint: the state after the profiled step, one more step
+    # with and without the round trip, deterministic algorithms on for both
+    path = tmp / "train_state.safetensors"
+    t2 = time.time()
+    save_state(path, {"unet": unet.state_dict(), "optimizer": opt.state_dict()})
+    save_s = time.time() - t2
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step(300)
+        after = [p.detach().clone() for p in params]
+        t3 = time.time()
+        state = restore_state(path)
+        unet.load_state_dict(state["unet"])
+        opt.load_state_dict(state["optimizer"])
+        del state
+        torch.cuda.synchronize()
+        load_s = time.time() - t3
+        step(300)
+        same = all(torch.equal(a, p.detach()) for a, p in zip(after, params))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    ckpt_gb = path.stat().st_size / 1e9
+    path.unlink()
+    print(f"phase train (3): checkpoint {ckpt_gb:.2f} GB written in {save_s:.1f} s, restored in "
+          f"{load_s:.1f} s; the step after the round trip bit for bit: {same}")
+    if not same:
+        fail("the step after the checkpoint's round trip differs from the step without it")
+    del unet, opt, params, sample, after
+    torch.cuda.empty_cache()
+
+    # (4) the conditioned bundle of musev_referencenet_pose: one SGD step
+    models = build_models("musev_referencenet_pose", seed=0)
+    bundle = {name: getattr(models, name).float()
+              for name in ("unet", "referencenet", "ip_proj", "controlnet")}
+    del models
+    torch.cuda.empty_cache()
+    h, w = TRAIN_CLIP[2:4]
+    clip_dim = bundle["ip_proj"].proj.in_features
+    batch = dict(latents=latents, text_emb=text,
+                 refer_latents=torch.randn(1, h, w, 4, generator=data).cuda(),
+                 clip_pooled=torch.randn(1, clip_dim, generator=data).cuda(),
+                 control_images=torch.rand(1, TRAIN_CLIP[1], 8 * h, 8 * w, 3,
+                                           generator=data).cuda())
+    sspec = SuperTrainSpec(unet_cfg=bundle["unet"].cfg,
+                           referencenet_cfg=bundle["referencenet"].cfg,
+                           controlnet_cfg=bundle["controlnet"].cfg)
+    samples = {n: list(m.parameters())[::16] for n, m in bundle.items()}
+    befores = {n: [p.detach().clone() for p in ps] for n, ps in samples.items()}
+
+    def super_step():
+        with torch.autocast("cuda", torch.bfloat16):
+            return super_train_step(bundle, sspec, batch, torch.Generator().manual_seed(13))
+
+    super_loss, super_s, super_launches, super_peak = timed_run(torch, super_step)
+    grads = {}
+    for n, m in bundle.items():
+        named = list(m.named_parameters())
+        reached = [(k, p) for k, p in named if p.grad is not None]
+        grads[n] = dict(
+            params=len(named), reached=len(reached),
+            finite=all(bool(torch.isfinite(p.grad).all()) for _, p in reached),
+            zero=[k for k, p in reached if not bool(p.grad.any())])
+    # the sampled params after the step are p - lr * g bit for bit (_sgd's
+    # rounding); a param stays where lr * |g| is under half its float32
+    # spacing in every element
+    applied, moved, below = {}, {}, {}
+    for n, ps in samples.items():
+        applied[n] = all(torch.equal(p.detach(), b - p.grad.to(b.dtype) * sspec.learning_rate)
+                         for b, p in zip(befores[n], ps) if p.grad is not None)
+        stayed = [(b, p) for b, p in zip(befores[n], ps) if torch.equal(b, p.detach())]
+        moved[n] = 1.0 - len(stayed) / len(ps)
+        below[n] = sum(bool((p.grad.float().abs() * sspec.learning_rate
+                             < torch.abs(torch.nextafter(b, torch.full_like(b, math.inf)) - b) / 2
+                             ).all()) for b, p in stayed if p.grad is not None) / max(len(stayed), 1)
+    print(f"phase train (4): super_train_step on the musev_referencenet_pose bundle: loss "
+          f"{super_loss.item():.4f}, {super_s:.2f} s, peak {super_peak:.1f} GB, launches "
+          f"{super_launches}; grads per module {grads}; sampled params after the step equal "
+          f"p - lr * g {applied}; share moved {moved}; share of the unmoved whose lr * |g| is "
+          f"under half the float32 spacing in every element {below}")
+    ok = math.isfinite(super_loss.item()) and all(
+        g["finite"] and g["reached"] > 0 and not g["zero"] for g in grads.values())
+    if not ok or not all(applied.values()):
+        fail(f"the super bundle's step is not finite, reached a module in part or was not "
+             f"applied: {grads}, {applied}")
+    del bundle, batch, samples, befores
+    torch.cuda.empty_cache()
+
+    record.update(
+        unet_params=n_params, clip=list(TRAIN_CLIP), losses=losses, step_s=times,
+        median_step_s=statistics.median(times), peak_gb=peak_gb, launches=launches,
+        launches_per_step=per_step, profile=profile,
+        busy_share=None if profile.get("device_ms") is None
+        else profile["device_ms"] / profile["wall_ms"],
+        checkpoint=dict(gb=ckpt_gb, save_s=save_s, load_s=load_s, bit_for_bit=same),
+        super=dict(loss=super_loss.item(), s=super_s, peak_gb=super_peak,
+                   launches=super_launches, grads=grads, applied=applied, moved_share=moved,
+                   unmoved_below_spacing_share=below),
+        narrow=train_narrow(torch), s=time.time() - t0)
+    print(f"phase train: {record['s']:.1f} s")
+    return record
+
+
+def phase_serve(torch, rerun_frames: int, need: tuple) -> dict:
+    """The serving callables (see the module docstring, phase 11). Returns
+    its record."""
+    import numpy as np
+
+    from musev_torch.models.unet3d import unet3d_apply
+    from musev_torch.pipelines.loader import build_models
+    from musev_torch.pipelines.pipeline import MusevPipeline
+    from musev_torch.schedulers.ancestral import DDIMScheduler
+    from musev_torch.serve.app import OnlineInference
+    from musev_torch.utils.inversion import ddim_inversion
+
+    t0 = time.time()
+    pipe = MusevPipeline(build_models("musev", seed=0))
+    server = OnlineInference(pipe, fps=12, time_size=12)
+    prompt, size = T2V_ARGS["prompt"], T2V_ARGS["height"]
+    frames, serve_s, launches, peak_gb = timed_run(torch, lambda: server.online_t2v_inference(
+        prompt, None, seed=0, w=size, h=size, video_length=SERVE_FRAMES))
+    shots = -(-SERVE_FRAMES // server.time_size)
+    res = pipe.text2video(prompt, height=size, width=size, video_length=server.time_size,
+                          n_batch=shots, condition_images=None, seed=0)
+    n_cond = res.videos.shape[1] - shots * server.time_size
+    want = (res.videos[0, :n_cond + SERVE_FRAMES] * 255).astype(np.uint8)
+    diff = int(np.abs(frames.astype(np.int16) - want).max()) if frames.shape == want.shape \
+        else None
+    print(f"phase serve: online_t2v_inference of {SERVE_FRAMES} frames at {size}^2 in {shots} "
+          f"shots: {serve_s:.2f} s, peak {peak_gb:.1f} GB, frames {frames.shape}, launches "
+          f"{launches}; against MusevPipeline.text2video called directly: max |diff| {diff} "
+          f"(the path's rerun spread {rerun_frames})")
+    if frames.shape != (n_cond + SERVE_FRAMES, size, size, 3) or diff is None \
+            or diff > rerun_frames:
+        fail(f"the served frames {frames.shape} differ from the direct call by {diff}")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the served clip launched {name} no time")
+
+    text_c, _ = pipe.encode_prompt_pair([prompt], [""])
+    sched = DDIMScheduler.create(INVERSION_STEPS)
+    latents = torch.from_numpy(res.latents).cuda().to(pipe.m.dtype)
+    t1 = time.time()
+    with torch.inference_mode():
+        traj = ddim_inversion(sched, latents, lambda x, t: unet3d_apply(pipe.m.unet, x, t, text_c))
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in traj)
+    torch.cuda.synchronize()
+    inv_s = time.time() - t1
+    print(f"phase serve: ddim_inversion of the clip's latents {tuple(latents.shape)} over "
+          f"{INVERSION_STEPS} steps: {inv_s:.2f} s, {len(traj)} latents, finite {finite}")
+    if not finite:
+        fail("the DDIM inversion gave non-finite latents")
+    del pipe, server, res, traj, latents
+    torch.cuda.empty_cache()
+    record = dict(clip_s=serve_s, peak_gb=peak_gb, launches=launches, frames=list(frames.shape),
+                  max_frame_diff=diff, rerun_frame_change=rerun_frames, inversion_s=inv_s,
+                  inversion_steps=INVERSION_STEPS, s=time.time() - t0)
+    print(f"phase serve: {record['s']:.1f} s")
+    return record
+
+
 def main() -> None:
     try:
         import torch
@@ -1986,13 +2454,20 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="_options_phase_", dir=ROOT) as tmp:
         options = phase_options(torch, Path(tmp), image, pose_frames, face_emb, need)
     paths.update(options)
+    with tempfile.TemporaryDirectory(prefix="_train_phase_", dir=ROOT) as tmp:
+        paths["train"] = phase_train(torch, Path(tmp))
+    rows["flash_attention_train"] = paths["train"].pop("attention")
+    paths["serve"] = phase_serve(torch, paths["musev"]["rerun_frame_change"], need)
 
-    # launches: this slice's path (phase onnx's dwpose clip) for the kernels
-    # it runs; the split UNet call for the split-merge route, which no path
-    # takes under the default carry
+    # launches: this slice's path (phase train's timed AdamW steps) for the
+    # kernels it runs (flash with stats under autograd, K5, K6, K7); phase
+    # onnx's dwpose clip for the others; the split UNet call for the
+    # split-merge route, which no path takes under the default carry
     split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
     path_counts = dict(onnx["dwpose clip"]["launches"])
     path_counts["flash_attention_parts"] = split_counts["flash_attention_parts"]
+    for name in ("flash_attention_train", "pivot_rows", "pivot_rows_gn", "unpivot_rows"):
+        path_counts[name] = paths["train"]["launches"][name]
     by_path = {name: dict({p: paths[p]["launches"][name] for p in paths},
                           **{"split UNet call": split_counts[name]})
                for name in KERNELS}
@@ -2019,9 +2494,14 @@ def main() -> None:
         entry("short_attention", "musev_torch/csrc/short_attention.cu",
               "musev_tpu/ops/pallas/short_attention.py:39"),
         entry("pivot_rows", "musev_torch/csrc/pivot.cu", f"{pivot_py}:70", POSE_HEAD,
-              variant="without scale/shift; the paths fuse the GroupNorm apply (K6)"),
+              variant="without scale/shift: the inference paths fuse the GroupNorm apply "
+              "(K6); the training path's backward runs it (K7's backward)"),
         entry("pivot_rows_gn", "musev_torch/csrc/pivot.cu", f"{pivot_py}:75", POSE_HEAD),
         entry("unpivot_rows", "musev_torch/csrc/pivot.cu", f"{pivot_py}:113", POSE_HEAD),
+        entry("flash_attention_train", "musev_torch/csrc/flash_attention.cu",
+              f"{flash_py}:77,297", variant="with_stats=True (:79-80) as the forward of "
+              "ops.attention.MemEfficientAttention, the training route; its backward is "
+              "plain PyTorch"),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

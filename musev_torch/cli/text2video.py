@@ -14,8 +14,10 @@ JAX CLI does, and ``--face_det_onnx`` / ``--face_rec_onnx`` (given together;
 through the ONNX executor on ``--device``, for the FaceID branch. The two
 ONNX files are read before any model is built, so a missing one raises
 ``FileNotFoundError`` there (the JAX CLI reads them after building).
-``--parallel`` other than ``none`` is not ported yet and raises
-``NotImplementedError`` before any model is built.
+``--parallel`` goes through ``parallel.mesh.cli_topology`` where the JAX
+CLI calls it: ``fp`` and ``dp`` run without a mesh on one device, as the
+JAX CLI does, and raise ``NotImplementedError`` on 2 or more devices
+(ROADMAP item 15) before any model is built.
 Each task's clip is written as an mp4 when the native video library is
 available, else as PNG frames.
 
@@ -119,18 +121,9 @@ def parse_args(argv=None):
                    help="tiny random-weight model (smoke tests, no checkpoints)")
     p.add_argument("--parallel", type=str, default="none",
                    choices=["none", "fp", "dp"],
-                   help="multi-device topology; only 'none' is ported "
-                        "(ROADMAP queue 1, item 15)")
+                   help="multi-device topology; fp and dp run without a mesh on "
+                        "one device, more devices are ROADMAP queue 1, item 15")
     return p.parse_args(argv)
-
-
-def refuse_unported_flags(args) -> None:
-    """Raise NotImplementedError for ``--parallel`` other than ``none``,
-    the one flag of the JAX CLIs not ported yet."""
-    if args.parallel != "none":
-        raise NotImplementedError(
-            f"--parallel {args.parallel} is not ported to musev_torch yet "
-            "(ROADMAP queue 1, item 15)")
 
 
 def face_source(task, height: int, width: int, ip_img, refer, cond):
@@ -227,7 +220,6 @@ def write_frames(out_path: str, frames: np.ndarray, fps: int) -> str:
 def main(argv=None) -> List[str]:
     """Run every selected task; returns the paths written."""
     args = parse_args(argv)
-    refuse_unported_flags(args)
     if bool(args.face_det_onnx) != bool(args.face_rec_onnx):
         raise SystemExit(
             "--face_det_onnx and --face_rec_onnx must be given together "
@@ -235,10 +227,9 @@ def main(argv=None) -> List[str]:
             "recognition model)"
         )
     from ..autoprompt import generate_prompts
-    from ..configs.model_registry import get_model_preset, resolve_negative_prompt
+    from ..configs.model_registry import get_model_preset
     from ..configs.tasks import load_tasks
-    from ..pipelines.loader import build_models
-    from ..pipelines.pipeline import MusevPipeline
+    from ..parallel.mesh import cli_topology
     from ..schedulers import create_scheduler
 
     scheduler = "lcm" if (args.lcm or args.lcm_lora_path) else args.scheduler
@@ -269,9 +260,22 @@ def main(argv=None) -> List[str]:
 
         face_extractor = build_face_emb_extractor(
             args.face_det_onnx, args.face_rec_onnx, norm=args.face_emb_norm, device=args.device)
+    # one device: a null context and no pipeline kwargs; more raise (item 15)
+    topology_ctx, par_kwargs = cli_topology(args.parallel)
+    with topology_ctx:
+        return _run_tasks(args, preset, scheduler, tasks, face_extractor, par_kwargs)
+
+
+def _run_tasks(args, preset, scheduler: str, tasks, face_extractor, par_kwargs) -> List[str]:
+    """Build the models and run every selected task inside ``main``'s
+    topology context; returns the paths written."""
+    from ..configs.model_registry import resolve_negative_prompt
+    from ..pipelines.loader import build_models
+    from ..pipelines.pipeline import MusevPipeline
+
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
                           strict=args.strict_checkpoints)
-    pipe = MusevPipeline(models, scheduler_name=scheduler)
+    pipe = MusevPipeline(models, scheduler_name=scheduler, **par_kwargs)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
     os.makedirs(args.output_dir, exist_ok=True)

@@ -21,8 +21,8 @@ JAX CLI reads). A processor name without its files raises the JAX CLI's
 the command line, are checked before any model is built, so a missing one
 raises ``FileNotFoundError`` there (the JAX CLI reads them after
 building); an environment default for a stage the run does not select is
-not read. ``--parallel`` other than ``none`` is not ported yet and
-raises ``NotImplementedError`` before any model is built.
+not read. ``--parallel`` is the text2video CLI's (``fp`` and ``dp`` run
+without a mesh on one device).
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ from .text2video import (
     _round16,
     _shrink_preset,
     _torch_dtype,
-    refuse_unported_flags,
     write_frames,
 )
 
@@ -136,8 +135,8 @@ def parse_args(argv=None):
                    help="tiny random-weight model (smoke tests, no checkpoints)")
     p.add_argument("--parallel", type=str, default="none",
                    choices=["none", "fp", "dp"],
-                   help="multi-device topology; only 'none' is ported "
-                        "(ROADMAP queue 1, item 15)")
+                   help="multi-device topology; fp and dp run without a mesh on "
+                        "one device, more devices are ROADMAP queue 1, item 15")
     return p.parse_args(argv)
 
 
@@ -235,14 +234,11 @@ def _windows(reader, args, height: int, width: int):
 def main(argv=None) -> List[str]:
     """Run every selected task that has a ``video_path``; returns the paths written."""
     args = parse_args(argv)
-    refuse_unported_flags(args)
     register_onnx_stages(args)
-    from ..configs.model_registry import get_model_preset, resolve_negative_prompt
+    from ..configs.model_registry import get_model_preset
     from ..configs.tasks import load_tasks
     from ..io.processors import get_processor
-    from ..io.video import VideoReader
-    from ..pipelines.loader import build_models
-    from ..pipelines.pipeline import MusevPipeline
+    from ..parallel.mesh import cli_topology
     from ..schedulers import create_scheduler
 
     scheduler = "lcm" if (args.lcm or args.lcm_lora_path) else args.scheduler
@@ -267,9 +263,24 @@ def main(argv=None) -> List[str]:
     if args.tiny:
         preset = _shrink_preset(preset)
     tasks = load_tasks(args.test_data_path)
+    # one device: a null context and no pipeline kwargs; more raise (item 15)
+    topology_ctx, par_kwargs = cli_topology(args.parallel)
+    with topology_ctx:
+        return _run_tasks(args, preset, scheduler, processor, tasks, par_kwargs)
+
+
+def _run_tasks(args, preset, scheduler: str, processor, tasks, par_kwargs) -> List[str]:
+    """Build the models and run every selected task that has a
+    ``video_path`` inside ``main``'s topology context; returns the paths
+    written."""
+    from ..configs.model_registry import resolve_negative_prompt
+    from ..io.video import VideoReader
+    from ..pipelines.loader import build_models
+    from ..pipelines.pipeline import MusevPipeline
+
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
                           strict=args.strict_checkpoints)
-    pipe = MusevPipeline(models, scheduler_name=scheduler)
+    pipe = MusevPipeline(models, scheduler_name=scheduler, **par_kwargs)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
     os.makedirs(args.output_dir, exist_ok=True)

@@ -495,6 +495,9 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
                 end - begin != itemsize * int(np.prod(info["shape"], dtype=np.int64)):
             raise ValueError(f"{path}: tensor {name!r} has data offsets {info['data_offsets']} "
                              f"that do not fit its shape {info['shape']} or the file")
+        if begin == end:  # an empty tensor: its zero-byte slice cannot be viewed as dtype
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
         raw = data[begin:end]
         if begin % itemsize:  # a writer that did not align its tensors
             raw = raw.copy()

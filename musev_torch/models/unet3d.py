@@ -36,6 +36,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.adain import adain_to_condition_frames
 from ..ops.index_ops import frame_mask, splice_with_index
@@ -330,9 +331,23 @@ def unet3d_core(
     controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
     controlnet_mid_residual: Optional[torch.Tensor] = None,
     pose_guider_emb: Optional[torch.Tensor] = None,
+    grad_checkpoint: bool = False,
 ) -> torch.Tensor:
-    """The UNet block loop over frame rows ``x (B*T, H, W, C)``."""
+    """The UNet block loop over frame rows ``x (B*T, H, W, C)``.
+
+    ``grad_checkpoint`` runs each layer of a down or up block (its resnet,
+    temporal conv, spatial and temporal transformers and AdaIN) and the mid
+    block's whole sequence under ``torch.utils.checkpoint`` (non-reentrant):
+    only the unit's input is kept for the backward, which recomputes the
+    unit. The stem, the down- and upsamplers, the ReferenceNet fuses and the
+    output head are not checkpointed. Checkpointing the whole UNet, as
+    ``jax.checkpoint`` does in the JAX package's training step, would not
+    lower PyTorch's peak: its recompute stores every activation again.
+    """
     cfg = unet.cfg
+    if grad_checkpoint and refer_self_attn_embs is not None:
+        raise ValueError("grad_checkpoint takes no refer_self_attn_embs: a recomputed layer "
+                         "would write or read its site again")
     spatial_kw: Dict[str, Any] = dict(
         num_frames=num_frames,
         cond_index=cond_index if use_temporal else None,
@@ -370,7 +385,9 @@ def unet3d_core(
         # and resolution, in the activations' dtype
         if not cfg.need_spatial_position_emb:
             return None
-        if (h, w) not in spatial_embs:
+        # a checkpointed unit recomputes it: a cache hit would skip the ops
+        # whose saved tensors the recompute must give back
+        if grad_checkpoint or (h, w) not in spatial_embs:
             grid = unet.spatial_grid(h, w, x.device).to(x.dtype)
             spatial_embs[(h, w)] = unet.spatial_position_embedding(grid)
         return spatial_embs[(h, w)]
@@ -402,6 +419,23 @@ def unet3d_core(
     def fuse(mod, x, refer_emb):
         return mod(x, refer_emb, num_frames=num_frames)
 
+    def unit(fn, *args):
+        if grad_checkpoint:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def mid_layers(mid, x):
+        x = mid.resnets[0](x, temb)
+        if hasattr(mid, "temp_convs"):
+            x = temporal_conv(mid.temp_convs[0], x)
+        x = spatial(mid.attentions[0], x)
+        if hasattr(mid, "temp_attentions"):
+            x = temporal_attn(mid.temp_attentions[0], x)
+        x = mid.resnets[1](x, temb)
+        if hasattr(mid, "temp_convs"):
+            x = temporal_conv(mid.temp_convs[1], x)
+        return adain(x)
+
     x = unet.conv_in(x)
     if pose_guider_emb is not None:
         x = x + pose_guider_emb.to(x.dtype)
@@ -415,7 +449,7 @@ def unet3d_core(
     for block in unet.down_blocks:
         fusers = iter(block.refer_emb_attns if fuse_down else ())
         for j in range(len(block.resnets)):
-            x = layer(block, j, x)
+            x = unit(layer, block, j, x)
             if fuse_down:
                 x = fuse(next(fusers), x, next(refer))
             skips.append(x)
@@ -428,17 +462,7 @@ def unet3d_core(
         skips = [s + r.to(s.dtype) for s, r in zip(skips, controlnet_down_residuals)]
         x = skips[-1]
 
-    mid = unet.mid_block
-    x = mid.resnets[0](x, temb)
-    if hasattr(mid, "temp_convs"):
-        x = temporal_conv(mid.temp_convs[0], x)
-    x = spatial(mid.attentions[0], x)
-    if hasattr(mid, "temp_attentions"):
-        x = temporal_attn(mid.temp_attentions[0], x)
-    x = mid.resnets[1](x, temb)
-    if hasattr(mid, "temp_convs"):
-        x = temporal_conv(mid.temp_convs[1], x)
-    x = adain(x)
+    x = unit(mid_layers, unet.mid_block, x)
     if cfg.need_refer_emb and mid_block_refer_emb is not None:
         x = fuse(unet.mid_block_refer_emb_attns, x, mid_block_refer_emb)
     if controlnet_mid_residual is not None:
@@ -447,7 +471,7 @@ def unet3d_core(
     for block in unet.up_blocks:
         for j in range(len(block.resnets)):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = layer(block, j, x)
+            x = unit(layer, block, j, x)
         if hasattr(block, "upsamplers"):
             out_hw = skips[-1].shape[1:3] if skips else None
             x = block.upsamplers[0](x, out_hw=out_hw)
@@ -479,6 +503,7 @@ def unet3d_apply(
     controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
     controlnet_mid_residual: Optional[torch.Tensor] = None,
     pose_guider_emb: Optional[torch.Tensor] = None,
+    grad_checkpoint: bool = False,
 ) -> torch.Tensor:
     """Predict noise for a window of frames.
 
@@ -492,8 +517,9 @@ def unet3d_apply(
     ``refer_self_attn_embs`` under ``refer_self_attn_mode`` "write" is a
     list that receives every spatial site's normalised self-attention input
     (B*T, HW, C); under "read", entry i (B, S_ref, C) joins site i's
-    ReferenceOnly keys. Returns (B, T_total, H, W, C) over the spliced video
-    (condition frames included).
+    ReferenceOnly keys. ``grad_checkpoint`` recomputes the block layers in
+    the backward (``unet3d_core``). Returns (B, T_total, H, W, C) over the
+    spliced video (condition frames included).
     """
     if condition_latents is not None:
         if gen_index is None or cond_index is None:
@@ -516,5 +542,6 @@ def unet3d_apply(
         refer_self_attn_embs=refer_self_attn_embs, refer_self_attn_mode=refer_self_attn_mode,
         controlnet_down_residuals=controlnet_down_residuals,
         controlnet_mid_residual=controlnet_mid_residual, pose_guider_emb=pose_guider_emb,
+        grad_checkpoint=grad_checkpoint,
     )
     return x.reshape(b, num_frames, h0, w0, -1)

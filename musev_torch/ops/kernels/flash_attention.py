@@ -15,7 +15,11 @@ flash_attention.py:575-639): one launch of the same kernel per KV part, each
 also writing its per-row softmax stats (m, l), and an exact merge in PyTorch.
 
 The wrappers take CPU tensors to the plain versions and CUDA tensors to the
-kernel; on CUDA they launch or raise, never fall back.
+kernel; on CUDA they launch or raise, never fall back. A call that autograd
+records (``records``) returns ``ops.attention.mem_efficient_sdpa``: an
+``autograd.Function`` whose forward is the same launches with their softmax
+stats (the plain versions on the CPU) and whose backward recomputes the
+probabilities chunk by chunk.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, records
 
 MAX_HEAD_DIM = 512
 LOG2E = 1.4426950408889634
@@ -157,6 +161,8 @@ def flash_attention(
     dim (TMA cannot step it): the caller makes it contiguous.
     """
     _check(q, k, v)
+    if records(q, k, v):
+        return _mem_efficient(q, k, v, scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     out, _, _ = _launch(q, k, v, scale, with_stats=False)
@@ -181,6 +187,22 @@ def flash_attention_parts(
     _check(q, k, v)
     if part < 1:
         raise ValueError(f"flash_attention_parts: part {part} must be positive")
+    if records(q, k, v):
+        return _mem_efficient(q, k, v, scale, part)
+    if k.shape[1] == 0:
+        return torch.zeros_like(q)
+    return attention_parts(q, k, v, scale, part)[0].to(q.dtype)
+
+
+flash_attention_parts.launches = 0
+
+
+def attention_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float], part: int):
+    """The split-merge route's float32 output and merged stats (o, m, l) in
+    the kernel's units: one launch per part on CUDA (counted as
+    ``flash_attention_parts.launches``), ``flash_attention_stats_plain`` on
+    the CPU. Takes at least one KV row."""
     o = m = l = None
     for lo in range(0, k.shape[1], part):
         kp, vp = k[:, lo:lo + part], v[:, lo:lo + part]
@@ -201,12 +223,13 @@ def flash_attention_parts(
         denom = torch.where(total > 0, total, torch.ones_like(total))
         o.mul_(w1[..., None]).add_(oi.float().mul_(w2[..., None])).div_(denom[..., None])
         m, l = m_new, total
-    if o is None:  # sk = 0
-        return torch.zeros_like(q)
-    return o.to(q.dtype)
+    return o, m, l
 
 
-flash_attention_parts.launches = 0
+def _mem_efficient(q, k, v, scale, part=None):
+    from ..attention import mem_efficient_sdpa  # ops.attention imports this module
+
+    return mem_efficient_sdpa(q, k, v, scale, part)
 
 
 def _lib() -> ctypes.CDLL:

@@ -9,7 +9,11 @@ package, no dispatcher routes to it; it is an alternative long-KV design held
 against ``flash_attention`` on the card.
 
 ``flash_stream`` takes CPU tensors to ``flash_attention_plain`` and CUDA
-tensors to the kernel; on CUDA it launches or raises, never falls back.
+tensors to the kernel; on CUDA it launches or raises, never falls back. The
+kernel writes no softmax stats, so it has no backward: a call on CUDA that
+autograd records raises (training takes ``flash_attention``, whose launch
+with stats is ``mem_efficient_sdpa``'s forward); on the CPU such a call runs
+the plain version with autograd through it.
 """
 
 from __future__ import annotations
@@ -19,8 +23,13 @@ from typing import Optional
 
 import torch
 
-from . import _build
-from .flash_attention import _check, check_kernel_inputs, flash_attention_plain, strides
+from . import _build, records
+from .flash_attention import (
+    _check,
+    check_kernel_inputs,
+    flash_attention_plain,
+    strides,
+)
 
 MAX_HEAD_DIM = 160
 
@@ -36,6 +45,10 @@ def flash_stream(
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
+    if records(q, k, v):
+        raise NotImplementedError(
+            "flash_stream has no backward (its kernel writes no softmax stats): "
+            "train through flash_attention")
     check_kernel_inputs("flash_stream", q, k, v, MAX_HEAD_DIM)
     b, sq, h, d = q.shape
     if scale is None:

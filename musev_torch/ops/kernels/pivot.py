@@ -12,6 +12,13 @@ back to frame-major.
 CUDA tensors to the kernels; on CUDA they launch or raise, never fall back.
 ``pivot_rows.launches`` counts K5 launches, ``pivot_rows.gn_launches`` K6
 launches, ``unpivot_rows.launches`` K7 launches.
+
+Under autograd (``records``) each call runs as an ``autograd.Function`` on
+any device: a pivot is a permutation, so the backward of K5 is K7 and that
+of K7 is K5, exactly; the backward of K6 unpivots the gradient (K7) and
+takes ``dx = g * scale`` and the float32 sums over the pixels
+``dscale = sum g * x``, ``dshift = sum g``, because the temporal
+transformer's scale and shift depend on x through the GroupNorm statistics.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, records
 
 _ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
 VEC_BYTES = 16  # one thread moves one 16-byte vector of a row
@@ -80,10 +87,18 @@ def pivot_rows(
                     f"pivot_rows: {name} must be float32 {(b, t, c)} on {x.device}, got "
                     f"{s.dtype} {tuple(s.shape)} on {s.device}"
                 )
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pivot_rows: unsupported device {x.device}")
+    if records(x, scale, shift):
+        return _Pivot.apply(x) if scale is None else _PivotGN.apply(x, scale, shift)
+    return _pivot(x, scale, shift)
+
+
+def _pivot(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor]):
+    """K5 or K6 on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return pivot_rows_plain(x, scale, shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"pivot_rows: unsupported device {x.device}")
+    b, t, hw, c = x.shape
     elem = _check_kernel_input("pivot_rows", x)
     if scale is not None:
         for name, s in (("scale", scale), ("shift", shift)):
@@ -120,10 +135,17 @@ def unpivot_rows(y: torch.Tensor) -> torch.Tensor:
     with any outer strides."""
     if y.ndim != 4:
         raise ValueError(f"unpivot_rows takes (b, HW, T, C), got {tuple(y.shape)}")
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unpivot_rows: unsupported device {y.device}")
+    if records(y):
+        return _Unpivot.apply(y)
+    return _unpivot(y)
+
+
+def _unpivot(y: torch.Tensor) -> torch.Tensor:
+    """K7 on a CUDA tensor, the plain version on a CPU tensor."""
     if y.device.type == "cpu":
         return unpivot_rows_plain(y)
-    if y.device.type != "cuda":
-        raise ValueError(f"unpivot_rows: unsupported device {y.device}")
     elem = _check_kernel_input("unpivot_rows", y)
     b, hw, t, c = y.shape
     out = torch.empty((b, t, hw, c), dtype=y.dtype, device=y.device)
@@ -142,6 +164,54 @@ def unpivot_rows(y: torch.Tensor) -> torch.Tensor:
 
 
 unpivot_rows.launches = 0
+
+
+class _Pivot(torch.autograd.Function):
+    """K5 under autograd; its backward is K7."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _pivot(x, None, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unpivot_rows(g.contiguous())
+
+
+class _Unpivot(torch.autograd.Function):
+    """K7 under autograd; its backward is K5."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return _unpivot(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pivot_rows(g.contiguous())
+
+
+class _PivotGN(torch.autograd.Function):
+    """K6 under autograd: ``y = pivot(x.dtype(fp32(x) * scale + shift))``.
+    The backward unpivots the gradient with K7, then ``dx = g * scale`` in
+    x's dtype and ``dscale``, ``dshift`` as float32 sums over the pixels."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift):
+        ctx.save_for_backward(x, scale)
+        return _pivot(x, scale, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        g = unpivot_rows(g.contiguous()).float()  # (b, T, HW, C)
+        dx = dscale = dshift = None
+        if ctx.needs_input_grad[0]:
+            dx = (g * scale[:, :, None]).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (g * x.float()).sum(dim=2)
+        if ctx.needs_input_grad[2]:
+            dshift = g.sum(dim=2)
+        return dx, dscale, dshift
 
 
 def _lib() -> ctypes.CDLL:

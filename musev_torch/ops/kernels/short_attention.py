@@ -8,7 +8,11 @@ temporal transformer. q/k/v may be the strided column views of a fused QKV
 projection (row stride 3C); no copy is made.
 
 ``short_attention_packed`` takes CPU tensors to the plain version and CUDA
-tensors to the kernel; on CUDA it launches or raises, never falls back.
+tensors to the kernel; on CUDA it launches or raises, never falls back. A
+call that autograd records (``records``) runs as ``_ShortAttention``, an
+``autograd.Function`` whose forward is that same choice and whose backward
+recomputes the plain float32 softmax (T <= 64, so its (N, H, T, T) logits are
+small) and differentiates it.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, records
 
 MAX_SHORT_SEQ = 64
 MAX_HEAD_DIM = 256
@@ -97,7 +101,13 @@ def short_attention_packed(
         raise ValueError(f"C={c} not divisible by heads={n_heads}")
     if kv_len is not None and not 1 <= kv_len <= t:
         raise ValueError(f"kv_len={kv_len} outside [1, {t}]")
-    d = c // n_heads
+    if records(q, k, v):
+        return _ShortAttention.apply(q, k, v, n_heads, scale, kv_len)
+    return _short_attention(q, k, v, n_heads, scale, kv_len)
+
+
+def _short_attention(q, k, v, n_heads, scale, kv_len):
+    """The plain version on a CPU tensor, else one launch of the kernel."""
     if q.device.type == "cpu":
         return short_attention_plain(q, k, v, n_heads, scale, kv_len)
     if q.device.type != "cuda":
@@ -107,6 +117,8 @@ def short_attention_packed(
     why = layout_error(q, k, v, n_heads)
     if why is not None:
         raise ValueError(f"short_attention kernel: {why}")
+    n, t, c = q.shape
+    d = c // n_heads
     ld = q.stride(1)
     if scale is None:
         scale = d**-0.5
@@ -127,6 +139,28 @@ def short_attention_packed(
 
 
 short_attention_packed.launches = 0
+
+
+class _ShortAttention(torch.autograd.Function):
+    """``short_attention_packed`` under autograd: the forward is the kernel
+    on CUDA (the plain version on the CPU); the backward recomputes
+    ``short_attention_plain`` in float32 (autocast off) from the saved q, k
+    and v and returns its grads in their dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads, scale, kv_len):
+        ctx.args = (n_heads, scale, kv_len)
+        ctx.save_for_backward(q, k, v)
+        return _short_attention(q, k, v, n_heads, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast(g.device.type, enabled=False):
+            leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            out = short_attention_plain(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, g.float())
+        return (*(d.to(x.dtype) for d, x in zip(grads, (q, k, v))), None, None, None)
 
 
 def _lib() -> ctypes.CDLL:

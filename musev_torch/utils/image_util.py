@@ -1,10 +1,11 @@
-"""Histogram matching and CFG rescale.
+"""Histogram matching, crop/resize and CFG rescale.
 
-Counterpart of ``hist_match_frame``, ``hist_match_video_to_frame`` and
-``rescale_noise_cfg`` in ``musev_tpu/utils/image_util.py``. Histogram
-matching runs on the host in numpy, after the decode (reference his_match,
-tensor_util.py:13-34, applied at predictor.py:745-750); the rescale runs on
-the device in the denoise step.
+Counterpart of ``musev_tpu/utils/image_util.py``. Histogram matching runs on
+the host in numpy, after the decode (reference his_match,
+tensor_util.py:13-34, applied at predictor.py:745-750);
+``dynamic_crop_resize`` on the host in PIL (mmcm's
+batch_dynamic_crop_resize_images); the rescale on the device in the denoise
+step.
 """
 
 from __future__ import annotations
@@ -31,6 +32,26 @@ def hist_match_frame(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
 def hist_match_video_to_frame(video: np.ndarray, reference_frame: np.ndarray) -> np.ndarray:
     """Every frame of (T, H, W, 3) matched to ``reference_frame``."""
     return np.stack([hist_match_frame(reference_frame, f) for f in video])
+
+
+def dynamic_crop_resize(image: np.ndarray, target_h: int, target_w: int) -> np.ndarray:
+    """Center-crop (H, W, 3) to the target aspect ratio, then resize with
+    PIL's default filter to (target_h, target_w, 3) uint8 (the mmcm
+    batch_dynamic_crop_resize_images contract)."""
+    from PIL import Image
+
+    h, w = image.shape[:2]
+    target_ratio = target_w / target_h
+    ratio = w / h
+    if ratio > target_ratio:  # too wide: crop width
+        new_w = int(round(h * target_ratio))
+        x0 = (w - new_w) // 2
+        image = image[:, x0:x0 + new_w]
+    elif ratio < target_ratio:  # too tall: crop height
+        new_h = int(round(w / target_ratio))
+        y0 = (h - new_h) // 2
+        image = image[y0:y0 + new_h]
+    return np.asarray(Image.fromarray(image.astype(np.uint8)).resize((target_w, target_h)))
 
 
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,

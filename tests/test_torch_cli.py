@@ -168,7 +168,8 @@ def test_video2video_cli_on_a_pose_video(tmp_path, captured):
 
 # (the case's position in the list before the adapter flags, --scheduler and
 # --ip_adapter_face_checkpoint were ported: the test ids keep it, cli, flags,
-# what the error names)
+# what the error names). --parallel fp / dp is refused on 2 or more devices
+# only; on one it runs without a mesh (test_parallel_on_one_device_...).
 _REFUSED = [
     (0, t2v, ["--parallel", "fp"], "item 15"),
     (14, v2v, ["--parallel", "dp"], "item 15"),
@@ -183,9 +184,98 @@ def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli,
         raise AssertionError("models were built")
 
     monkeypatch.setattr(loader, "build_models", built)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", *flags])
+
+
+def test_cli_topology_matches_the_jax_fallback(monkeypatch):
+    """``none``, or ``fp``/``dp`` on one device: no mesh, no pipeline kwargs
+    (the JAX ``cli_topology``, mesh.py:52-54; the suite gives JAX 8 virtual
+    devices, so only its ``none`` is compared); an unknown name raises in
+    both."""
+    from musev_tpu.parallel.mesh import cli_topology as j_cli_topology
+    from musev_torch.parallel.mesh import cli_topology
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert j_cli_topology("none")[1] == {}
+    for topology in ("none", "fp", "dp"):
+        ctx, kwargs = cli_topology(topology)
+        assert kwargs == {}
+        with ctx:
+            pass
+    for topology_fn in (cli_topology, j_cli_topology):
+        with pytest.raises(ValueError, match="unknown"):
+            topology_fn("tp")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert cli_topology("none")[1] == {}
+
+
+@pytest.mark.parametrize("cli", [t2v, v2v], ids=["text2video", "video2video"])
+def test_clis_build_and_run_inside_the_topology_context(monkeypatch, tmp_path, cli):
+    """Both CLIs enter the context ``cli_topology`` returns around building
+    the models, as the JAX CLIs enter their mesh, so a topology that returns
+    a real one cannot be dropped."""
+    import contextlib
+
+    from musev_torch.parallel import mesh
+
+    events = []
+
+    @contextlib.contextmanager
+    def recorded():
+        events.append("enter")
+        try:
+            yield
+        finally:
+            events.append("exit")
+
+    def built(*a, **k):
+        events.append("build")
+        raise RuntimeError("stop after the build")
+
+    monkeypatch.setattr(mesh, "cli_topology", lambda topology: (recorded(), {}))
+    monkeypatch.setattr(loader, "build_models", built)
+    (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
+    with pytest.raises(RuntimeError, match="stop after the build"):
+        cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu",
+                  "--parallel", "fp"])
+    assert events == ["enter", "build", "exit"]
+
+
+@pytest.fixture(scope="module")
+def pose_video(tmp_path_factory):
+    if not native_available():
+        pytest.skip("native video library unavailable: the CLI reads the video through it")
+    d = tmp_path_factory.mktemp("pose")
+    pose = np.random.default_rng(0).integers(0, 256, (6, 64, 64, 3), dtype=np.uint8)
+    write_video(str(d / "pose.mp4"), pose, fps=12)
+    (d / "tasks.csv").write_text(f"name,prompt,video_path\ndance,a dancer,{d / 'pose.mp4'}\n")
+    return d / "tasks.csv"
+
+
+def _run_parallel(cli, topology, tasks, out, captured):
+    extra = ["--video_is_middle", "--controlnet_name", "none"] if cli is v2v else []
+    (written,) = cli.main(["--test_data_path", str(tasks), "--output_dir", str(out),
+                           "--parallel", topology, *extra, *TINY_RUN])
+    return captured[written]
+
+
+@pytest.mark.parametrize("cli", [t2v, v2v], ids=["text2video", "video2video"])
+def test_parallel_on_one_device_writes_the_frames_of_none(request, tmp_path, captured, cli):
+    """``--parallel fp`` and ``--parallel dp`` on one device write the frames
+    of ``--parallel none``, bit for bit. Only video2video reads a video (the
+    ``pose_video`` fixture, which skips without the native video library)."""
+    if cli is v2v:
+        tasks = request.getfixturevalue("pose_video")
+    else:
+        tasks = tmp_path / "tasks.csv"
+        tasks.write_text("name,prompt\ncat,a cat walking\n")
+    want = _run_parallel(cli, "none", tasks, tmp_path / "none", captured)
+    for topology in ("fp", "dp"):
+        got = _run_parallel(cli, topology, tasks, tmp_path / topology, captured)
+        np.testing.assert_array_equal(got, want)
 
 
 # the ONNX flags, once refused (the ids keep the refused list's positions):

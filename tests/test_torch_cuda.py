@@ -17,6 +17,7 @@ the product.
 import pytest
 import torch
 
+from musev_torch.ops.attention import MemEfficientAttention, mem_efficient_sdpa, natural_lse
 from musev_torch.ops.kernels.flash_attention import (
     _launch,
     flash_attention,
@@ -318,3 +319,130 @@ def test_cuda_pivots_raise_instead_of_falling_back(cuda):
     x = torch.zeros(2, 13, 81, 24, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         pivot_rows(x[..., 4:20])  # rows not 16-byte aligned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,part", [
+    (1100, 1100, 40, None), (1100, 2200, 40, None), (600, 77, 40, None), (700, 1400, 80, None),
+    (520, 300, 160, None),
+    (324, 77, 160, None), (81, 81, 160, None),  # L2 / L3 sites: fewer rows than a chunk
+    (1100, 2200, 40, 1024),  # the split-merge route's parts
+])
+def test_cuda_training_attention_grads_match_plain(cuda, sq, sk, d, part):
+    """The training route (``mem_efficient_sdpa``: the flash kernel with
+    stats forward, whole or over KV parts, the chunked float32 backward)
+    against autograd through the plain attention in float32, at the training
+    path's head dims and at query lengths below one chunk; the kernel's stats
+    give the natural-log lse."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, sq, 2 * d, device=cuda, generator=g, dtype=torch.bfloat16)
+    kv = torch.randn(2, sk, 4 * d, device=cuda, generator=g, dtype=torch.bfloat16)
+    do = torch.randn(2, sq, 2, d, device=cuda, generator=g)
+    q.requires_grad_()
+    kv.requires_grad_()
+    k, v = (t.unflatten(-1, (2, d)) for t in kv.chunk(2, dim=-1))
+    before = (MemEfficientAttention.launches, flash_attention_parts.launches)
+    if part is None:
+        out = flash_attention(q.unflatten(-1, (2, d)), k, v)
+    else:
+        out = flash_attention_parts(q.unflatten(-1, (2, d)), k, v, part=part)
+    assert type(out.grad_fn).__name__ == "MemEfficientAttentionBackward"
+    launched = (MemEfficientAttention.launches - before[0],
+                flash_attention_parts.launches - before[1])
+    assert launched == ((1, 0) if part is None else (0, -(-sk // part)))
+    out.backward(do.bfloat16())
+    got = (out, q.grad, kv.grad)
+    q32, kv32 = (t.detach().float().requires_grad_() for t in (q, kv))
+    k32, v32 = (t.unflatten(-1, (2, d)) for t in kv32.chunk(2, dim=-1))
+    want = flash_attention_plain(q32.unflatten(-1, (2, d)), k32, v32)
+    want.backward(do.bfloat16().float())
+    for a, b in zip(got, (want, q32.grad, kv32.grad)):
+        assert_close_scaled(a, b)
+    _, m, l = _launch(q.detach().unflatten(-1, (2, d)), k.detach(), v.detach(), None,
+                      with_stats=True)
+    logits = torch.einsum("bqhd,bkhd->bqhk", q32.unflatten(-1, (2, d)), k32) * d**-0.5
+    lse = torch.logsumexp(logits, dim=-1)
+    assert ((natural_lse(m, l) - lse).abs() / lse.abs().clamp_min(1)).max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,kv_len", [(5184, 320, None), (1296, 640, None), (81, 1280, 10)])
+def test_cuda_short_attention_grads_match_plain(cuda, n, c, kv_len):
+    """K4 under autograd at the temporal transformers' sites (T = 13, 8
+    heads; views of one fused projection): the kernel's forward, the float32
+    recompute's backward, against autograd through the plain version in
+    float32."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qkv = torch.randn(n, 13, 3 * c, device=cuda, generator=g, dtype=torch.bfloat16)
+    do = torch.randn(n, 13, c, device=cuda, generator=g).bfloat16()
+    qkv.requires_grad_()
+    before = short_attention_packed.launches
+    out = short_attention_packed(*qkv.chunk(3, dim=-1), 8, kv_len=kv_len)
+    assert short_attention_packed.launches == before + 1
+    assert type(out.grad_fn).__name__ == "_ShortAttentionBackward"
+    out.backward(do)
+    qkv32 = qkv.detach().float().requires_grad_()
+    want = short_attention_plain(*qkv32.chunk(3, dim=-1), 8, kv_len=kv_len)
+    want.backward(do.float())
+    assert_close_scaled(out, want)
+    assert_close_scaled(qkv.grad, qkv32.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pivot", "unpivot", "pivot_gn"])
+def test_cuda_pivot_grads_match_plain(cuda, kind):
+    """The pivots under autograd on the card (K5's backward is K7 and K7's
+    is K5, K6's backward K7 and float32 sums) against autograd through the
+    plain versions: the moves and dx bit for bit, the sums to float32
+    rounding in another order."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 13, 1296, 320, device=cuda, generator=g, dtype=torch.bfloat16)
+    if kind == "unpivot":
+        x = x.transpose(1, 2).contiguous()
+    scale, shift = (torch.randn(2, 1, 320, device=cuda, generator=g) for _ in range(2))
+
+    def run(plain):
+        xs = x.clone().requires_grad_()
+        ss, hs = scale.clone().requires_grad_(), shift.clone().requires_grad_()
+        if kind == "pivot":
+            y = pivot_rows_plain(xs) if plain else pivot_rows(xs)
+        elif kind == "unpivot":
+            y = unpivot_rows_plain(xs) if plain else unpivot_rows(xs)
+        else:
+            y = (pivot_rows_plain if plain else pivot_rows)(
+                xs, ss.expand(2, 13, 320), hs.expand(2, 13, 320))
+        gy = torch.randn(y.shape, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(9), dtype=torch.bfloat16)
+        y.backward(gy)
+        return xs.grad, ss.grad, hs.grad
+
+    counts = (pivot_rows.launches, unpivot_rows.launches)
+    dx, dscale, dshift = run(plain=False)
+    launched = (pivot_rows.launches - counts[0], unpivot_rows.launches - counts[1])
+    # (K5, K7) launches: forward and backward, K6's forward counted apart
+    assert launched == {"pivot": (1, 1), "unpivot": (1, 1), "pivot_gn": (0, 1)}[kind]
+    dx_want, dscale_want, dshift_want = run(plain=True)
+    assert torch.equal(dx, dx_want)
+    if kind == "pivot_gn":
+        for a, b in ((dscale, dscale_want), (dshift, dshift_want)):
+            assert ((a - b).norm() / b.norm()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_under_autograd_carry_grad_fn(cuda):
+    """No kernel wrapper returns an output without grad_fn to a call that
+    autograd records, and each launches its own kernel: flash whole and in
+    parts under ``MemEfficientAttention``, K4 under ``_ShortAttention``;
+    ``flash_stream``, whose kernel writes no stats, raises."""
+    qkv = torch.randn(2, 600, 3 * 80, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    q, k, v = (t.unflatten(-1, (2, 40)) for t in qkv.chunk(3, dim=-1))
+    short = torch.randn(64, 13, 3 * 320, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    counters = (MemEfficientAttention, flash_attention_parts, short_attention_packed,
+                flash_attention, flash_stream)
+    before = [c.launches for c in counters]
+    outs = [flash_attention(q, k, v), flash_attention_parts(q, k, v, part=256),
+            short_attention_packed(*short.chunk(3, dim=-1), 8)]
+    assert all(o.grad_fn is not None for o in outs)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 1, 0, 0]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_stream(q, k, v)

@@ -3,7 +3,7 @@
 A fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``musev_tpu`` imports every module of ``musev_torch``. The same finder
 refuses the packages the GPU machine may lack (``yaml``, ``PIL``,
-``transformers``, ``safetensors``): the port imports them only on the paths
+``transformers``, ``safetensors``, ``gradio``): the port imports them only on the paths
 that need them, so a CSV task file still loads. OpenCV, ``onnx`` and
 ``onnxruntime`` are refused too: the ONNX executor and the host stages
 (dwpose, face embedding, SAM) have their own code for what the reference
@@ -20,7 +20,7 @@ GUARDED = """
 import importlib, pkgutil, sys
 
 REFUSED = ("jax", "jaxlib", "musev_tpu", "yaml", "PIL", "transformers", "safetensors", "cv2",
-           "onnx", "onnxruntime")
+           "onnx", "onnxruntime", "gradio", "optax", "orbax")
 
 
 class Refuse:
@@ -37,7 +37,10 @@ names = sorted(m.name for m in pkgutil.walk_packages(musev_torch.__path__, "muse
 assert {"musev_torch.schedulers.ancestral", "musev_torch.schedulers.lcm",
         "musev_torch.schedulers.dpm_multistep", "musev_torch.models.lora",
         "musev_torch.utils.textual_inversion", "musev_torch.onnx.runtime",
-        "musev_torch.io.dwpose", "musev_torch.io.face_emb", "musev_torch.io.sam"} <= set(names), names
+        "musev_torch.io.dwpose", "musev_torch.io.face_emb", "musev_torch.io.sam",
+        "musev_torch.train", "musev_torch.parallel.mesh", "musev_torch.serve.app",
+        "musev_torch.utils.checkpoint", "musev_torch.utils.inversion",
+        "musev_torch.utils.logging_util", "musev_torch.utils.profiling"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
