@@ -173,7 +173,41 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    the same arguments within the ``musev`` path's rerun spread, and the
    path's kernels must launch; then ``utils.inversion.ddim_inversion`` of
    the clip's latents over 10 steps with the UNet's noise prediction:
-   finite.
+   finite;
+12. parallel, this slice's path (one card, so no collective crosses GPUs):
+   (1) the per-rank frame-parallel program (``unet3d_apply_fp`` with
+   ``comm=StubComm(n)``, n = 2, 4, 8: one rank's rows, 40 / 20 / 10 of the
+   window batch's 78, on this card) of the full-width
+   ``musev`` UNet at 576^2 (3 windows of 12 + 1 frames, CFG, seeded bf16
+   weights) beside the unsharded call: per n the median CUDA-event ms of 3
+   calls after a warm-up, the busy share (one profiled call's kernel time
+   over that median),
+   the launches of one call by kernel and the flash calls by KV shape (K1:
+   self-attention, K3: the ReferenceOnly concat KV), and
+   ``fp_collective_model``'s payload bytes and collective calls per step
+   (derived, not measured); fails unless every output is finite and of the
+   full shape (its values are fakes at the collective points) and K1, K3,
+   K4, K6 and K7 launched; (2) the real collectives over an NCCL process
+   group of world size 1 (``RealComm``: the halo's ``batch_isend_irecv``
+   from the rank to itself, ``all_to_all_single``, all-reduce,
+   all-gather), with the UNet redrawn at N(0, 0.01) (see phase split):
+   ``unet3d_apply_fp`` against ``unet3d_apply``, at the reference's
+   temporal weights and with the temporal layers weighted 1 (98 % of the
+   output), in float32 with float32 references for the kernels
+   (``float32_references``) within relative L2 FP_FLOAT32_L2, and in bf16
+   with the kernels, the program's relative L2 against the float32
+   unsharded output at most 1 + FP_BF16_MARGIN times the bf16 unsharded
+   call's own (the two bf16 outputs' relative L2 is printed beside 1e-2,
+   which it does not meet: ``chip_fp_parity.py`` finds the two parting at
+   the first temporal site, by the order of the GroupNorm statistics' sums,
+   in every form of them it tries); ``predict_noise`` under ``dp_axis`` bit
+   for bit; ``ring_attention`` at the L0 self site against
+   ``flash_attention`` over the group (one step: no transfer), and
+   ``ring_attention_local`` at n = 2, 4, 8 (every rank's K/V shards on this
+   card: the ring's n steps of the K1s kernel and their merges, with no
+   transfer), within the kernel tolerances above and with n^2 launches;
+   the full-width VAE's frame-sharded decode of 25 frames bit for bit, the
+   d = 512 wide kernel launched.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last the line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout, it
@@ -183,6 +217,7 @@ exits non-zero and prints no result. Details go to
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import json
@@ -324,6 +359,17 @@ TRAIN_NARROW = dict(block_out_channels=(80, 160, 320, 320), layers_per_block=1,
 # phase serve: the request's frames, the DDIM inversion's steps
 SERVE_FRAMES = 24
 INVERSION_STEPS = 10
+# phase parallel: the stub ranks' counts, the timed calls after a warm-up,
+# the window batch (3 windows x 2 CFG halves of 12 + 1 frames: 78 rows)
+FP_STUB_DEVICES = (2, 4, 8)
+FP_RUNS = 3
+FP_WINDOWS = 3
+# the NCCL-1 check of the frame-parallel program against the unsharded
+# call: relative L2 in float32 (kernels replaced by float32 references),
+# and in bf16 the program's error against the float32 unsharded call at
+# most (1 + margin) times the unsharded bf16 call's own
+FP_FLOAT32_L2 = 1e-4
+FP_BF16_MARGIN = 0.05
 
 
 def fail(msg: str) -> None:
@@ -2407,6 +2453,261 @@ def phase_serve(torch, rerun_frames: int, need: tuple) -> dict:
     return record
 
 
+@contextlib.contextmanager
+def float32_references(torch):
+    """Float32 stand-ins for the kernels (which take bf16 only), for a
+    float32 reference call of the UNet on the card: SDPA for flash
+    attention (a library call, here only as a reference), the plain
+    versions of the short-attention kernel and of the pivots; TF32 off."""
+    import torch.nn.functional as F
+
+    from musev_torch.models import unet_blocks
+    from musev_torch.ops import attention as attention_mod
+    from musev_torch.ops.kernels.pivot import pivot_rows_plain, unpivot_rows_plain
+    from musev_torch.ops.kernels.short_attention import short_attention_plain
+    from musev_torch.parallel import frame_parallel
+
+    def sdpa(q, k, v, scale=None):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), scale=scale).transpose(1, 2)
+
+    patches = [(attention_mod, "flash_attention", sdpa),
+               (unet_blocks, "short_attention_packed", short_attention_plain)]
+    for mod in (unet_blocks, frame_parallel):
+        patches += [(mod, "pivot_rows", pivot_rows_plain), (mod, "unpivot_rows", unpivot_rows_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_parallel(torch, tmp: Path) -> dict:
+    """The multi-device topologies on one card (see the module docstring,
+    phase 12). Returns its record."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from musev_torch.models.unet3d import UNet3D, musev_config, unet3d_apply
+    from musev_torch.models.unet_blocks import TemporalConvLayer, TemporalTransformer
+    from musev_torch.models.vae import AutoencoderKL, VAEConfig, vae_decode_video
+    from musev_torch.ops import attention as attention_mod
+    from musev_torch.ops.context import make_window_plan
+    from musev_torch.ops.kernels.flash_attention import flash_attention
+    from musev_torch.parallel import frame_parallel as fp
+    from musev_torch.parallel.mesh import make_mesh, set_mesh
+    from musev_torch.parallel.ring_attention import ring_attention, ring_attention_local
+    from musev_torch.pipelines import denoiser
+    from musev_torch.pipelines.loader import init_random_
+    from musev_torch.schedulers.euler_discrete import EulerDiscreteScheduler
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    unet = UNet3D(musev_config()).to("cuda", torch.bfloat16).eval()
+    init_random_(unet, gen, scale=0.02)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen, dtype=torch.bfloat16)
+
+    rows, frames = 2 * FP_WINDOWS, 12
+    sample, cond, text = rand(rows, frames, 72, 72, 4), rand(rows, 1, 72, 72, 4), \
+        rand(rows, 77, 768)
+    kw = dict(condition_latents=cond, gen_index=tuple(range(1, frames + 1)), cond_index=(0,),
+              do_cfg=True)
+    by_shape = {}
+    real_flash = attention_mod.flash_attention
+
+    def classified(q, k, v, scale=None):
+        # each call launches once on CUDA: K1 self-attention, K3 the longer
+        # concat KV, and the short KV of cross-attention
+        kind = "K1" if k.shape[1] == q.shape[1] else ("K3" if k.shape[1] > q.shape[1]
+                                                      else "short KV")
+        by_shape[kind] = by_shape.get(kind, 0) + 1
+        return real_flash(q, k, v, scale=scale)
+
+    record = dict(stub={})
+    calls = [("unsharded", lambda: unet3d_apply(unet, sample, 500.0, text, **kw))]
+    for n in FP_STUB_DEVICES:
+        calls.append((f"stub n={n}", lambda n=n: fp.unet3d_apply_fp(
+            unet, sample, 500.0, text, comm=fp.StubComm(n), **kw)))
+    attention_mod.flash_attention = classified
+    try:
+        with torch.inference_mode():
+            for name, call in calls:
+                by_shape.clear()
+                zero_counts()
+                out = call()
+                torch.cuda.synchronize()
+                launches, shapes = read_counts(), dict(by_shape)
+                finite = bool(torch.isfinite(out.float()).all())
+                if out.shape != (rows, frames + 1, 72, 72, 4) or not finite:
+                    fail(f"phase parallel {name}: output {tuple(out.shape)}, finite {finite}")
+                ms = cuda_ms(torch, call, warmup=0, iters=FP_RUNS)
+                # busy: the profiled call's kernel time over the unprofiled
+                # calls' event span (the profiler's own host work would
+                # stretch its wall)
+                profile, _ = profile_path(torch, lambda: call(), {})
+                busy = None if profile["device_ms"] is None else profile["device_ms"] / ms
+                entry = dict(ms=ms, busy_share=busy, launches=launches, flash_by_kv=shapes,
+                             profile_wall_ms=profile["wall_ms"],
+                             profile_device_ms=profile["device_ms"])
+                if name != "unsharded":
+                    n = int(name.split("=")[1])
+                    meta_local = 2 * -(-FP_WINDOWS * (frames + 1) // n)
+                    entry.update(rows_per_device=meta_local, derived=fp.fp_collective_model(
+                        unet.cfg, t=frames + 1, h0=72, w0=72, n=n, n_windows=FP_WINDOWS,
+                        do_cfg=True, n_vc=1, itemsize=2))
+                    need = dict(K1=shapes.get("K1", 0), K3=shapes.get("K3", 0),
+                                K4=launches["short_attention"], K6=launches["pivot_rows_gn"],
+                                K7=launches["unpivot_rows"])
+                    entry["kernel_launches"] = need
+                    for kernel, count in need.items():
+                        if count <= 0:
+                            fail(f"phase parallel {name} launched {kernel} no time")
+                record["stub"][name] = entry
+                d = entry.get("derived")
+                print(f"phase parallel {name}: {entry.get('rows_per_device', rows * 13)} rows "
+                      f"on the card, {ms:.1f} ms a UNet call (median of {FP_RUNS}), busy "
+                      f"{'not measured' if busy is None else f'{busy:.1%}'}; launches a call "
+                      f"{launches}, flash by KV {shapes}"
+                      + ("" if d is None else
+                         f"; derived per step: {d['bytes_per_step'] / 1e6:.1f} MB over "
+                         f"{d['collectives_per_step']} collectives {d['counts_by_kind']}"))
+                del out
+    finally:
+        attention_mod.flash_attention = real_flash
+    torch.cuda.empty_cache()
+
+    # the real collectives over an NCCL group of one rank
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_init", rank=0,
+                            world_size=1)
+    try:
+        init_random_(unet, gen, scale=SPLIT_WEIGHT_SCALE)
+        fp_mesh = make_mesh((1,), ("fp",))
+        fp_check, nccl_launches = {}, None
+        # at the reference's temporal weights (1e-5) and with the temporal
+        # layers weighted 1 (98 % of the output there): the program over
+        # NCCL against the unsharded call, in float32 with float32
+        # references for the kernels (the semantics), and in bf16 with the
+        # kernels, each bf16 output against the float32 unsharded one
+        for weighting in ("reference", "temporal 1"):
+            if weighting == "temporal 1":
+                for m in unet.modules():
+                    if isinstance(m, (TemporalTransformer, TemporalConvLayer)):
+                        m.temporal_weight.data.fill_(1.0)
+            with torch.inference_mode():
+                zero_counts()
+                with set_mesh(fp_mesh):
+                    got = fp.unet3d_apply_fp(unet, sample, 500.0, text, axis="fp", **kw).float()
+                torch.cuda.synchronize()
+                nccl_launches = read_counts()
+                want = unet3d_apply(unet, sample, 500.0, text, **kw).float()
+                with float32_references(torch):
+                    unet32 = copy.deepcopy(unet).float()
+                    kw32 = dict(kw, condition_latents=cond.float())
+                    want32 = unet3d_apply(unet32, sample.float(), 500.0, text.float(), **kw32)
+                    with set_mesh(fp_mesh):
+                        got32 = fp.unet3d_apply_fp(unet32, sample.float(), 500.0, text.float(),
+                                                   axis="fp", **kw32)
+                    del unet32
+            if not (torch.isfinite(got).all() and torch.isfinite(got32).all()):
+                fail(f"the frame-parallel program over NCCL ({weighting}) is not finite")
+            fp_check[weighting] = dict(
+                float32=rel_l2(torch, got32, want32),
+                bf16_unsharded_vs_float32=rel_l2(torch, want, want32),
+                bf16_fp_vs_float32=rel_l2(torch, got, want32),
+                bf16_fp_vs_unsharded=rel_l2(torch, got, want))
+            del got, want, got32, want32
+            torch.cuda.empty_cache()
+        print("phase parallel NCCL-1 fp: unet3d_apply_fp against unet3d_apply, "
+              + "; ".join(f"{w}: float32 relative L2 {c['float32']:.3e} (tol "
+                          f"{FP_FLOAT32_L2}); bf16 against float32 {c['bf16_fp_vs_float32']:.4e}"
+                          f", the unsharded call's {c['bf16_unsharded_vs_float32']:.4e} (tol "
+                          f"x{1 + FP_BF16_MARGIN}); bf16 against bf16 "
+                          f"{c['bf16_fp_vs_unsharded']:.3e} (within 1e-2: "
+                          f"{c['bf16_fp_vs_unsharded'] <= 1e-2})" for w, c in fp_check.items())
+              + f"; launches {nccl_launches}")
+        for w, c in fp_check.items():
+            if not (c["float32"] <= FP_FLOAT32_L2 and c["bf16_fp_vs_float32"]
+                    <= (1 + FP_BF16_MARGIN) * c["bf16_unsharded_vs_float32"]):
+                fail(f"the frame-parallel program over NCCL disagrees ({w}): {c}")
+
+        dp_mesh = make_mesh((1,), ("dp",))
+        latents = torch.randn(1, 24, 72, 72, 4, device="cuda", generator=gen) * 14.6
+        text_uc, text_c = rand(1, 77, 768), rand(1, 77, 768)
+        spec = dict(unet_cfg=unet.cfg, scheduler=EulerDiscreteScheduler.create(10),
+                    plan=make_window_plan(24, 12, context_overlap=4),
+                    guidance=np.full((10,), 3.5, np.float32), n_vision_cond=1)
+        with torch.inference_mode():
+            outs = {}
+            for name, axes in (("dp", dict(dp_axis="dp")), ("none", {})):
+                with set_mesh(dp_mesh):
+                    outs[name] = denoiser.predict_noise(
+                        unet, denoiser.DenoiseSpec(**spec, **axes), latents, 0, text_uc,
+                        text_c, condition_latents=cond[:1].float())
+        dp_equal = bool(torch.equal(outs["dp"], outs["none"]))
+        print(f"phase parallel NCCL-1 dp: predict_noise under dp_axis bit for bit {dp_equal}")
+        if not dp_equal:
+            fail("predict_noise under dp_axis differs from the call without it")
+        del outs
+
+        q, k, v = flash_inputs(torch, gen, "qkv", 39, 8, 5184, 5184, 40)
+        with torch.inference_mode():
+            ring_attention.launches = 0
+            ring_out = ring_attention(q, k, v, dist.group.WORLD)
+            torch.cuda.synchronize()
+            ring_launches = {1: ring_attention.launches}
+            whole = flash_attention(q, k, v)
+            ring_err = {1: compare("phase parallel NCCL-1 ring_attention (L0 self)", ring_out,
+                                   whole)}
+            # the ring's n-step loop and merges at n > 1, every rank's K/V
+            # shards on this card (no transfer crosses ranks)
+            for n in FP_STUB_DEVICES:
+                ks, vs = k.chunk(n, dim=1), v.chunk(n, dim=1)
+                ring_attention.launches = 0
+                ring_out = torch.cat([ring_attention_local(q.chunk(n, dim=1)[r], ks, vs, r)
+                                      for r in range(n)], dim=1)
+                torch.cuda.synchronize()
+                ring_launches[n] = ring_attention.launches
+                ring_err[n] = compare(f"phase parallel ring_attention_local n={n} (L0 self)",
+                                      ring_out, whole)
+        if any(ring_launches[n] != n * n for n in ring_launches):
+            fail(f"ring attention launched its kernel {ring_launches} times (n^2 a ring)")
+        del q, k, v, ring_out, whole
+
+        vae = AutoencoderKL(VAEConfig()).to("cuda", torch.bfloat16).eval()
+        init_random_(vae, gen, scale=0.02)
+        vae_lat = rand(1, 25, 72, 72, 4)
+        with torch.inference_mode():
+            zero_counts()
+            sharded = vae_decode_video(vae, vae_lat, 16, mesh=dp_mesh, axis="dp")
+            torch.cuda.synchronize()
+            vae_launches = read_counts()
+            whole = vae_decode_video(vae, vae_lat, 16)
+        vae_equal = bool(torch.equal(sharded, whole))
+        print(f"phase parallel NCCL-1 VAE: the frame-sharded decode of 25 frames bit for bit "
+              f"{vae_equal}, launches {vae_launches}")
+        if not vae_equal or vae_launches["flash_attention"] <= 0:
+            fail(f"the sharded VAE decode: equal {vae_equal}, launches {vae_launches}")
+        del vae, sharded, whole
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    record.update(nccl_fp=fp_check, nccl_fp_launches=nccl_launches,
+                  nccl_dp_bit_for_bit=dp_equal,
+                  ring={n: dict(ring_err[n], launches=ring_launches[n]) for n in ring_err},
+                  nccl_vae_bit_for_bit=vae_equal, nccl_vae_launches=vae_launches,
+                  s=time.time() - t0)
+    print(f"phase parallel: {record['s']:.1f} s")
+    return record
+
+
 def main() -> None:
     try:
         import torch
@@ -2458,18 +2759,28 @@ def main() -> None:
         paths["train"] = phase_train(torch, Path(tmp))
     rows["flash_attention_train"] = paths["train"].pop("attention")
     paths["serve"] = phase_serve(torch, paths["musev"]["rerun_frame_change"], need)
+    with tempfile.TemporaryDirectory(prefix="_parallel_phase_", dir=ROOT) as tmp:
+        parallel = phase_parallel(torch, Path(tmp))
 
-    # launches: this slice's path (phase train's timed AdamW steps) for the
-    # kernels it runs (flash with stats under autograd, K5, K6, K7); phase
+    # launches: this slice's path (phase parallel's frame-parallel UNet call
+    # over NCCL) for the kernels it runs (flash, K4, K6, K7); phase train's
+    # timed AdamW steps for flash with stats under autograd and K5; phase
     # onnx's dwpose clip for the others; the split UNet call for the
     # split-merge route, which no path takes under the default carry
     split_counts = split[f"N(0, {SPLIT_WEIGHT_SCALE})"]["launches"]["split"]
     path_counts = dict(onnx["dwpose clip"]["launches"])
     path_counts["flash_attention_parts"] = split_counts["flash_attention_parts"]
-    for name in ("flash_attention_train", "pivot_rows", "pivot_rows_gn", "unpivot_rows"):
+    for name in ("flash_attention_train", "pivot_rows"):
         path_counts[name] = paths["train"]["launches"][name]
+    for name in ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows"):
+        path_counts[name] = parallel["nccl_fp_launches"][name]
+    stub8 = parallel["stub"][f"stub n={FP_STUB_DEVICES[-1]}"]["launches"]
     by_path = {name: dict({p: paths[p]["launches"][name] for p in paths},
-                          **{"split UNet call": split_counts[name]})
+                          **{"split UNet call": split_counts[name],
+                             f"parallel: one stub rank's UNet call, n = {FP_STUB_DEVICES[-1]}":
+                                 stub8[name],
+                             "parallel: NCCL-1 fp UNet call":
+                                 parallel["nccl_fp_launches"][name]})
                for name in KERNELS}
 
     def entry(name, source, replaces, head_site=None, **extra):
@@ -2512,7 +2823,7 @@ def main() -> None:
              computed_exp2_floor_ms=exp2_floors, paths=paths, split=split,
              reference_rel_err=ref_err, onnx={k: v for k, v in onnx.items()
                                               if k != "dwpose clip"},
-             total_s=time.time() - t0), indent=1))
+             parallel=parallel, total_s=time.time() - t0), indent=1))
     print(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

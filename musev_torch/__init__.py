@@ -19,3 +19,12 @@ for sm_90a under ``csrc/``, built by nvcc at first use
 ``short_attention.cu`` (K4) and ``pivot.cu`` (the temporal-rows pivots K5,
 K6 and K7).
 """
+
+
+def __getattr__(name):
+    # the JAX package's top-level mesh helpers (musev_tpu/__init__.py:42-45)
+    if name in ("make_mesh", "batch_sharding"):
+        from .parallel import mesh as _m
+
+        return getattr(_m, name)
+    raise AttributeError(name)

@@ -16,8 +16,11 @@ ONNX files are read before any model is built, so a missing one raises
 ``FileNotFoundError`` there (the JAX CLI reads them after building).
 ``--parallel`` goes through ``parallel.mesh.cli_topology`` where the JAX
 CLI calls it: ``fp`` and ``dp`` run without a mesh on one device, as the
-JAX CLI does, and raise ``NotImplementedError`` on 2 or more devices
-(ROADMAP item 15) before any model is built.
+JAX CLI does; under ``torchrun --nproc-per-node N`` each rank takes one
+device (``cuda:{LOCAL_RANK}``, NCCL; gloo with ``--device cpu``) and the
+pipeline shards the frame rows (``fp``) or the window x CFG batch (``dp``)
+over them, rank 0 writing the clips. Two or more visible GPUs without a
+process group raise before any model is built.
 Each task's clip is written as an mp4 when the native video library is
 available, else as PNG frames.
 
@@ -121,8 +124,9 @@ def parse_args(argv=None):
                    help="tiny random-weight model (smoke tests, no checkpoints)")
     p.add_argument("--parallel", type=str, default="none",
                    choices=["none", "fp", "dp"],
-                   help="multi-device topology; fp and dp run without a mesh on "
-                        "one device, more devices are ROADMAP queue 1, item 15")
+                   help="multi-device topology: run one process per device under "
+                        "torchrun (fp shards every frame row, dp the window x CFG "
+                        "batch); on one device both run without a mesh")
     return p.parse_args(argv)
 
 
@@ -260,8 +264,7 @@ def main(argv=None) -> List[str]:
 
         face_extractor = build_face_emb_extractor(
             args.face_det_onnx, args.face_rec_onnx, norm=args.face_emb_norm, device=args.device)
-    # one device: a null context and no pipeline kwargs; more raise (item 15)
-    topology_ctx, par_kwargs = cli_topology(args.parallel)
+    topology_ctx, par_kwargs = cli_topology(args.parallel, device=args.device)
     with topology_ctx:
         return _run_tasks(args, preset, scheduler, tasks, face_extractor, par_kwargs)
 
@@ -271,6 +274,7 @@ def _run_tasks(args, preset, scheduler: str, tasks, face_extractor, par_kwargs) 
     topology context; returns the paths written."""
     from ..configs.model_registry import resolve_negative_prompt
     from ..pipelines.loader import build_models
+    from ..parallel.mesh import is_main_rank
     from ..pipelines.pipeline import MusevPipeline
 
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
@@ -278,7 +282,9 @@ def _run_tasks(args, preset, scheduler: str, tasks, face_extractor, par_kwargs) 
     pipe = MusevPipeline(models, scheduler_name=scheduler, **par_kwargs)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
-    os.makedirs(args.output_dir, exist_ok=True)
+    writer = is_main_rank()  # on a mesh, rank 0 writes the clips
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     written = []
     for task in tasks:
         name = task.get("name", "task")
@@ -349,6 +355,8 @@ def _run_tasks(args, preset, scheduler: str, tasks, face_extractor, par_kwargs) 
             redraw_strength=args.redraw_strength,
         )
         frames = (res.videos[0] * 255).astype(np.uint8)
+        if not writer:
+            continue
         out_path = write_frames(out_path, frames, args.fps)
         written.append(out_path)
         print(f"wrote {out_path} ({frames.shape[0]} frames)")

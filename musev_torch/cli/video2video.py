@@ -21,8 +21,8 @@ JAX CLI reads). A processor name without its files raises the JAX CLI's
 the command line, are checked before any model is built, so a missing one
 raises ``FileNotFoundError`` there (the JAX CLI reads them after
 building); an environment default for a stage the run does not select is
-not read. ``--parallel`` is the text2video CLI's (``fp`` and ``dp`` run
-without a mesh on one device).
+not read. ``--parallel`` is the text2video CLI's (one process per device
+under ``torchrun``; rank 0 writes the clips).
 """
 
 from __future__ import annotations
@@ -135,8 +135,9 @@ def parse_args(argv=None):
                    help="tiny random-weight model (smoke tests, no checkpoints)")
     p.add_argument("--parallel", type=str, default="none",
                    choices=["none", "fp", "dp"],
-                   help="multi-device topology; fp and dp run without a mesh on "
-                        "one device, more devices are ROADMAP queue 1, item 15")
+                   help="multi-device topology: run one process per device under "
+                        "torchrun (fp shards every frame row, dp the window x CFG "
+                        "batch); on one device both run without a mesh")
     return p.parse_args(argv)
 
 
@@ -263,8 +264,7 @@ def main(argv=None) -> List[str]:
     if args.tiny:
         preset = _shrink_preset(preset)
     tasks = load_tasks(args.test_data_path)
-    # one device: a null context and no pipeline kwargs; more raise (item 15)
-    topology_ctx, par_kwargs = cli_topology(args.parallel)
+    topology_ctx, par_kwargs = cli_topology(args.parallel, device=args.device)
     with topology_ctx:
         return _run_tasks(args, preset, scheduler, processor, tasks, par_kwargs)
 
@@ -276,6 +276,7 @@ def _run_tasks(args, preset, scheduler: str, processor, tasks, par_kwargs) -> Li
     from ..configs.model_registry import resolve_negative_prompt
     from ..io.video import VideoReader
     from ..pipelines.loader import build_models
+    from ..parallel.mesh import is_main_rank
     from ..pipelines.pipeline import MusevPipeline
 
     models = build_models(preset, device=args.device, dtype=_torch_dtype(args.dtype),
@@ -283,7 +284,9 @@ def _run_tasks(args, preset, scheduler: str, processor, tasks, par_kwargs) -> Li
     pipe = MusevPipeline(models, scheduler_name=scheduler, **par_kwargs)
 
     wanted = None if args.target_datas == "all" else set(args.target_datas.split(","))
-    os.makedirs(args.output_dir, exist_ok=True)
+    writer = is_main_rank()  # on a mesh, rank 0 writes the clips
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     written = []
     for task in tasks:
         name = task.get("name", "task")
@@ -337,6 +340,8 @@ def _run_tasks(args, preset, scheduler: str, processor, tasks, par_kwargs) -> Li
             f"{args.model_name}_{name}_w={width}_h={height}_t={args.time_size}_s={seed}.mp4",
         )
         frames = (res.videos[0] * 255).astype(np.uint8)
+        if not writer:
+            continue
         out_path = write_frames(out_path, frames, args.fps)
         written.append(out_path)
         print(f"wrote {out_path} ({frames.shape[0]} frames)")

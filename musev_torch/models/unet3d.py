@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -307,12 +307,28 @@ def prepare_unet_inputs(
     return temb, femb, text_ctx, clip_ctx, face_ctx, cond_mask
 
 
-def unet3d_core(
+@dataclasses.dataclass
+class UNetOps:
+    """Strategy hooks of the block loop (``unet3d_core``; the JAX package's
+    ``UNetOps``, musev_tpu/models/unet3d.py:283-299).
+
+    The loop knows only frame-local row tensors (N, H, W, C); whatever mixes
+    frames or needs the batch's structure goes through these hooks, each
+    called with the module of its site. ``default_ops`` runs one program
+    with the frames folded into the batch; the frame-parallel program
+    (``parallel.frame_parallel``) swaps in collective-backed versions over
+    row shards."""
+
+    spatial: Callable  # (SpatialTransformer, x) -> x
+    temporal_conv: Callable  # (TemporalConvLayer, x) -> x
+    temporal_attn: Callable  # (TemporalTransformer, x) -> x
+    refer_fuse: Callable  # (ReferEmbFuse, x, refer_emb) -> x
+    adain: Callable  # (x) -> x
+    use_temporal: bool = True
+
+
+def default_ops(
     unet: UNet3D,
-    x: torch.Tensor,
-    temb: torch.Tensor,
-    femb: Optional[torch.Tensor],
-    text_ctx: torch.Tensor,
     *,
     num_frames: int,
     use_temporal: bool,
@@ -320,34 +336,20 @@ def unet3d_core(
     gen_index: Optional[Sequence[int]],
     cond_index: Optional[Sequence[int]],
     cond_mask: Optional[torch.Tensor],
+    femb: Optional[torch.Tensor],
+    text_ctx: torch.Tensor,
+    device,
     clip_ctx: Optional[torch.Tensor] = None,
     ip_adapter_scale: float = 1.0,
     face_ctx: Optional[torch.Tensor] = None,
     ip_adapter_face_scale: float = 1.0,
-    down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
-    mid_block_refer_emb: Optional[torch.Tensor] = None,
     refer_self_attn_embs: Optional[list] = None,
     refer_self_attn_mode: Optional[str] = None,
-    controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
-    controlnet_mid_residual: Optional[torch.Tensor] = None,
-    pose_guider_emb: Optional[torch.Tensor] = None,
     grad_checkpoint: bool = False,
-) -> torch.Tensor:
-    """The UNet block loop over frame rows ``x (B*T, H, W, C)``.
-
-    ``grad_checkpoint`` runs each layer of a down or up block (its resnet,
-    temporal conv, spatial and temporal transformers and AdaIN) and the mid
-    block's whole sequence under ``torch.utils.checkpoint`` (non-reentrant):
-    only the unit's input is kept for the backward, which recomputes the
-    unit. The stem, the down- and upsamplers, the ReferenceNet fuses and the
-    output head are not checkpointed. Checkpointing the whole UNet, as
-    ``jax.checkpoint`` does in the JAX package's training step, would not
-    lower PyTorch's peak: its recompute stores every activation again.
-    """
+) -> UNetOps:
+    """The one-program hooks over frame rows (B*T, H, W, C) folded from B
+    videos of ``num_frames`` frames."""
     cfg = unet.cfg
-    if grad_checkpoint and refer_self_attn_embs is not None:
-        raise ValueError("grad_checkpoint takes no refer_self_attn_embs: a recomputed layer "
-                         "would write or read its site again")
     spatial_kw: Dict[str, Any] = dict(
         num_frames=num_frames,
         cond_index=cond_index if use_temporal else None,
@@ -371,20 +373,20 @@ def unet3d_core(
         elif refer_self_attn_embs is not None and refer_self_attn_mode == "read":
             kw["refer_tokens"] = refer_self_attn_embs[i]
         return mod(x, text_ctx, **kw)
-    fuse_down = cfg.need_refer_emb and down_block_refer_embs is not None
 
     def temporal_conv(mod, x):
-        return mod(x, num_frames=num_frames, cond_mask=cond_mask) if use_temporal else x
+        return mod(x, num_frames=num_frames, cond_mask=cond_mask)
 
     bias = temporal_attn_bias(cfg.temporal_self_attn_mask, num_frames,
-                              cfg.temporal_attn_n_near, x.device) if use_temporal else None
+                              cfg.temporal_attn_n_near, device) if use_temporal else None
     spatial_embs: Dict[Tuple[int, int], torch.Tensor] = {}
 
-    def spatial_emb(h, w):
+    def spatial_emb(x):
         # the grid projected by spatial_position_embedding, once per call
         # and resolution, in the activations' dtype
         if not cfg.need_spatial_position_emb:
             return None
+        h, w = x.shape[1], x.shape[2]
         # a checkpointed unit recomputes it: a cache hit would skip the ops
         # whose saved tensors the recompute must give back
         if grad_checkpoint or (h, w) not in spatial_embs:
@@ -393,10 +395,11 @@ def unet3d_core(
         return spatial_embs[(h, w)]
 
     def temporal_attn(mod, x):
-        if not use_temporal:
-            return x
         return mod(x, femb, num_frames=num_frames, cond_mask=cond_mask,
-                   spatial_emb=spatial_emb(x.shape[1], x.shape[2]), bias=bias)
+                   spatial_emb=spatial_emb(x), bias=bias)
+
+    def refer_fuse(mod, x, refer_emb):
+        return mod(x, refer_emb, num_frames=num_frames)
 
     def adain(x):
         if (cfg.need_adain_temporal_cond and cfg.adain_fix and num_frames > 1
@@ -406,18 +409,54 @@ def unet3d_core(
             return adain_to_condition_frames(v, gen_index, cond_index).reshape(bt, h, w, c)
         return x
 
+    return UNetOps(spatial=spatial, temporal_conv=temporal_conv, temporal_attn=temporal_attn,
+                   refer_fuse=refer_fuse, adain=adain, use_temporal=use_temporal)
+
+
+def unet3d_core(
+    unet: UNet3D,
+    x: torch.Tensor,
+    temb: torch.Tensor,
+    ops: UNetOps,
+    *,
+    down_block_refer_embs: Optional[Sequence[torch.Tensor]] = None,
+    mid_block_refer_emb: Optional[torch.Tensor] = None,
+    controlnet_down_residuals: Optional[Sequence[torch.Tensor]] = None,
+    controlnet_mid_residual: Optional[torch.Tensor] = None,
+    pose_guider_emb: Optional[torch.Tensor] = None,
+    grad_checkpoint: bool = False,
+) -> torch.Tensor:
+    """The UNet block loop over frame rows ``x (N, H, W, C)``: frame-local
+    compute (convs, resnets, samplers, head) inline, the rest through
+    ``ops``.
+
+    ``grad_checkpoint`` runs each layer of a down or up block (its resnet,
+    temporal conv, spatial and temporal transformers and AdaIN) and the mid
+    block's whole sequence under ``torch.utils.checkpoint`` (non-reentrant):
+    only the unit's input is kept for the backward, which recomputes the
+    unit. The stem, the down- and upsamplers, the ReferenceNet fuses and the
+    output head are not checkpointed. Checkpointing the whole UNet, as
+    ``jax.checkpoint`` does in the JAX package's training step, would not
+    lower PyTorch's peak: its recompute stores every activation again.
+    """
+    cfg = unet.cfg
+    fuse_down = cfg.need_refer_emb and down_block_refer_embs is not None
+
+    def temporal_conv(mod, x):
+        return ops.temporal_conv(mod, x) if ops.use_temporal else x
+
+    def temporal_attn(mod, x):
+        return ops.temporal_attn(mod, x) if ops.use_temporal else x
+
     def layer(block, j, x):
         x = block.resnets[j](x, temb)
         if hasattr(block, "temp_convs"):
             x = temporal_conv(block.temp_convs[j], x)
         if hasattr(block, "attentions"):
-            x = spatial(block.attentions[j], x)
+            x = ops.spatial(block.attentions[j], x)
         if hasattr(block, "temp_attentions"):
             x = temporal_attn(block.temp_attentions[j], x)
-        return adain(x)
-
-    def fuse(mod, x, refer_emb):
-        return mod(x, refer_emb, num_frames=num_frames)
+        return ops.adain(x)
 
     def unit(fn, *args):
         if grad_checkpoint:
@@ -428,13 +467,13 @@ def unet3d_core(
         x = mid.resnets[0](x, temb)
         if hasattr(mid, "temp_convs"):
             x = temporal_conv(mid.temp_convs[0], x)
-        x = spatial(mid.attentions[0], x)
+        x = ops.spatial(mid.attentions[0], x)
         if hasattr(mid, "temp_attentions"):
             x = temporal_attn(mid.temp_attentions[0], x)
         x = mid.resnets[1](x, temb)
         if hasattr(mid, "temp_convs"):
             x = temporal_conv(mid.temp_convs[1], x)
-        return adain(x)
+        return ops.adain(x)
 
     x = unet.conv_in(x)
     if pose_guider_emb is not None:
@@ -443,7 +482,7 @@ def unet3d_core(
         x = temporal_attn(unet.transformer_in, x)
     refer = iter(down_block_refer_embs or ())
     if fuse_down:  # the stem and the 11 down sites take the 12 down embeddings in order
-        x = fuse(unet.first_refer_emb_attns, x, next(refer))
+        x = ops.refer_fuse(unet.first_refer_emb_attns, x, next(refer))
 
     skips = [x]
     for block in unet.down_blocks:
@@ -451,12 +490,12 @@ def unet3d_core(
         for j in range(len(block.resnets)):
             x = unit(layer, block, j, x)
             if fuse_down:
-                x = fuse(next(fusers), x, next(refer))
+                x = ops.refer_fuse(next(fusers), x, next(refer))
             skips.append(x)
         if hasattr(block, "downsamplers"):
-            x = adain(block.downsamplers[0](x))
+            x = ops.adain(block.downsamplers[0](x))
             if fuse_down:
-                x = fuse(next(fusers), x, next(refer))
+                x = ops.refer_fuse(next(fusers), x, next(refer))
             skips.append(x)
     if controlnet_down_residuals is not None:
         skips = [s + r.to(s.dtype) for s, r in zip(skips, controlnet_down_residuals)]
@@ -464,7 +503,7 @@ def unet3d_core(
 
     x = unit(mid_layers, unet.mid_block, x)
     if cfg.need_refer_emb and mid_block_refer_emb is not None:
-        x = fuse(unet.mid_block_refer_emb_attns, x, mid_block_refer_emb)
+        x = ops.refer_fuse(unet.mid_block_refer_emb_attns, x, mid_block_refer_emb)
     if controlnet_mid_residual is not None:
         x = x + controlnet_mid_residual.to(x.dtype)
 
@@ -521,6 +560,9 @@ def unet3d_apply(
     the backward (``unet3d_core``). Returns (B, T_total, H, W, C) over the
     spliced video (condition frames included).
     """
+    if grad_checkpoint and refer_self_attn_embs is not None:
+        raise ValueError("grad_checkpoint takes no refer_self_attn_embs: a recomputed layer "
+                         "would write or read its site again")
     if condition_latents is not None:
         if gen_index is None or cond_index is None:
             raise ValueError("condition_latents need gen_index and cond_index")
@@ -532,14 +574,18 @@ def unet3d_apply(
         use_temporal=use_temporal, cond_index=cond_index, vision_clip_emb=vision_clip_emb,
         ip_adapter_face_emb=ip_adapter_face_emb,
     )
+    ops = default_ops(
+        unet, num_frames=num_frames, use_temporal=use_temporal, do_cfg=do_cfg,
+        gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask, femb=femb,
+        text_ctx=text_ctx, device=sample.device, clip_ctx=clip_ctx,
+        ip_adapter_scale=ip_adapter_scale, face_ctx=face_ctx,
+        ip_adapter_face_scale=ip_adapter_face_scale, refer_self_attn_embs=refer_self_attn_embs,
+        refer_self_attn_mode=refer_self_attn_mode,
+        grad_checkpoint=grad_checkpoint,
+    )
     x = unet3d_core(
-        unet, sample.reshape(b * num_frames, h0, w0, -1), temb, femb, text_ctx,
-        num_frames=num_frames, use_temporal=use_temporal, do_cfg=do_cfg,
-        gen_index=gen_index, cond_index=cond_index, cond_mask=cond_mask,
-        clip_ctx=clip_ctx, ip_adapter_scale=ip_adapter_scale, face_ctx=face_ctx,
-        ip_adapter_face_scale=ip_adapter_face_scale,
+        unet, sample.reshape(b * num_frames, h0, w0, -1), temb, ops,
         down_block_refer_embs=down_block_refer_embs, mid_block_refer_emb=mid_block_refer_emb,
-        refer_self_attn_embs=refer_self_attn_embs, refer_self_attn_mode=refer_self_attn_mode,
         controlnet_down_residuals=controlnet_down_residuals,
         controlnet_mid_residual=controlnet_mid_residual, pose_guider_emb=pose_guider_emb,
         grad_checkpoint=grad_checkpoint,

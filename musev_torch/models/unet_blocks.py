@@ -243,15 +243,21 @@ class SpatialTransformer(nn.Module):
                 ip_adapter_scale: float = 1.0, face_tokens: Optional[torch.Tensor] = None,
                 ip_adapter_face_scale: float = 1.0,
                 refer_tokens: Optional[torch.Tensor] = None,
-                self_attn_out: Optional[list] = None) -> torch.Tensor:
+                self_attn_out: Optional[list] = None,
+                ref_attn_fn=None) -> torch.Tensor:
         """x (B*T, H, W, C); text_ctx (B*T, S, cross_dim); vision_clip_tokens
         (B*T, S_ip, ip_dim) IP-Adapter image tokens and face_tokens (B*T,
         S_f, ip_face_dim) FaceID tokens, or None; refer_tokens (B, S_ref, C)
-        extra ReferenceOnly keys; self_attn_out receives attn1's input."""
+        extra ReferenceOnly keys; self_attn_out receives attn1's input;
+        ``ref_attn_fn`` ``(attn1, norm_h) -> out`` replaces the ReferenceOnly
+        self-attention (the frame-parallel program, whose vision tokens come
+        from other ranks)."""
         n, h, w, c = x.shape
         y = self.proj_in(self.norm(x)).reshape(n, h * w, c)
         self_attn = None
-        if reference_attn:
+        if reference_attn and ref_attn_fn is not None:
+            self_attn = ref_attn_fn
+        elif reference_attn:
             def self_attn(attn, norm_h):
                 return reference_self_attention(
                     attn, norm_h, num_frames=num_frames, cond_index=cond_index,

@@ -11,7 +11,7 @@ on CUDA, the flash kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -161,12 +161,26 @@ def vae_decode(vae: AutoencoderKL, latents: torch.Tensor) -> torch.Tensor:
     return dec.conv_out(F.silu(dec.conv_norm_out(x)))
 
 
-def vae_decode_video(vae: AutoencoderKL, latents: torch.Tensor,
-                     segment: int = 16) -> torch.Tensor:
-    """(B, T, h, w, 4) -> (B, T, H, W, 3), decoded ``segment`` frames at a time."""
+def vae_decode_video(vae: AutoencoderKL, latents: torch.Tensor, segment: int = 16,
+                     mesh=None, axis: Optional[str] = None) -> torch.Tensor:
+    """(B, T, h, w, 4) -> (B, T, H, W, 3), decoded ``segment`` frames at a time.
+
+    With ``mesh``/``axis`` (musev_tpu/models/vae.py:216-280) the frames are
+    padded with copies of the last to a multiple of the axis size, each rank
+    decodes its contiguous shard in ``segment``-frame chunks, so memory per
+    device stays flat at any T, and the pixels are gathered on every rank
+    with the padding cut. The VAE is per frame: nothing else crosses ranks."""
+    from ..parallel.mesh import batch_sharding, replicated
+
     b, t = latents.shape[:2]
     flat = latents.reshape(b * t, *latents.shape[2:])
-    out = torch.cat([vae_decode(vae, flat[s:s + segment]) for s in range(0, b * t, segment)])
+    if mesh is not None:
+        flat = batch_sharding(flat, mesh, axis)
+        segment = min(segment, flat.shape[0])
+    out = torch.cat([vae_decode(vae, flat[s:s + segment])
+                     for s in range(0, flat.shape[0], segment)])
+    if mesh is not None:
+        out = replicated(out, b * t, mesh, axis)
     return out.reshape(b, t, *out.shape[1:])
 
 

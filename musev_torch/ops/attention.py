@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.context import sp_axis
 from .kernels.flash_attention import (
     _launch,
     attention_parts,
@@ -51,8 +52,10 @@ from .kernels.flash_attention import (
     flash_attention_plain,
 )
 
-# the JAX package's training chunk (attention.py:49)
+# the JAX package's training chunk (attention.py:49) and the shortest
+# sequence its dispatcher sends to flash or ring attention (:25)
 TRAIN_CHUNK = 512
+FLASH_MIN_SEQ = 512
 
 # copies of the JAX package's block plans (flash_attention.py:51, :65-74,
 # :489-513): they decide which KV extents split and where
@@ -225,7 +228,19 @@ def sdpa(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors; under autograd the kernel
-    wrappers take the training route themselves."""
+    wrappers take the training route themselves. Under a sequence-parallel
+    axis (``parallel.context.sp_axis``) a self-attention site of at least
+    ``FLASH_MIN_SEQ`` tokens, divisible by the axis size, runs as ring
+    attention (ops/attention.py:180-196)."""
+    sp = sp_axis()
+    if (sp is not None and bias is None and q.shape[1] == k.shape[1]
+            and q.shape[1] >= FLASH_MIN_SEQ):
+        from ..parallel.mesh import axis_size
+        from ..parallel.ring_attention import sp_sdpa
+
+        n = axis_size(sp)
+        if n > 1 and q.shape[1] % n == 0:
+            return sp_sdpa(q, k, v, axis=sp, scale=scale)
     if bias is not None:
         return flash_attention_plain(q, k, v, scale=scale, bias=bias)
     if longkv_impl() == "split":

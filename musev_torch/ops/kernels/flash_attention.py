@@ -214,16 +214,26 @@ def attention_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if o is None:
             o, m, l = oi.float(), mi, li
             continue
-        m_new = torch.maximum(m, mi)
-        # a row with every key masked so far has max -inf: subtract 0 there
-        base = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new), m_new)
-        w1 = torch.exp2(m - base) * l
-        w2 = torch.exp2(mi - base) * li
-        total = w1 + w2
-        denom = torch.where(total > 0, total, torch.ones_like(total))
-        o.mul_(w1[..., None]).add_(oi.float().mul_(w2[..., None])).div_(denom[..., None])
-        m, l = m_new, total
+        o, m, l = merge_stats(o, m, l, oi, mi, li)
     return o, m, l
+
+
+def merge_stats(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, oi: torch.Tensor,
+                mi: torch.Tensor, li: torch.Tensor):
+    """Merge a float32 partial attention output ``o`` (B, Sq, H, D) over
+    some keys, with its stats (m, l) in the kernel's units, and the output
+    ``oi`` with stats (mi, li) over other keys, exactly, by the rescaling
+    identity of ``_merge_parts`` (flash_attention.py:606-612); ``o`` is
+    updated in place. Returns (o, m, l) over both key sets."""
+    m_new = torch.maximum(m, mi)
+    # a row with every key masked so far has max -inf: subtract 0 there
+    base = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new), m_new)
+    w1 = torch.exp2(m - base) * l
+    w2 = torch.exp2(mi - base) * li
+    total = w1 + w2
+    denom = torch.where(total > 0, total, torch.ones_like(total))
+    o.mul_(w1[..., None]).add_(oi.float().mul_(w2[..., None])).div_(denom[..., None])
+    return o, m_new, total
 
 
 def _mem_efficient(q, k, v, scale, part=None):

@@ -23,6 +23,7 @@ predictions, and the next shot blends them into its head
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -38,6 +39,9 @@ from ..models.controlnet import (
 from ..models.unet3d import UNet3D, UNet3DConfig, unet3d_apply
 from ..ops.context import WindowPlan
 from ..ops.index_ops import fuse_part_tensor, take_frames
+from ..parallel.context import sharding_ctx
+from ..parallel.frame_parallel import StubComm, unet3d_apply_fp
+from ..parallel.mesh import batch_sharding, replicated
 from ..schedulers import Scheduler
 from ..utils.image_util import rescale_noise_cfg
 
@@ -75,10 +79,38 @@ class DenoiseSpec:
     controlnet_cfg: Optional[Union[ControlNetConfig, Tuple[ControlNetConfig, ...]]] = None
     controlnet_scale: Union[float, Tuple[float, ...]] = 1.0
     pose_guider_cfg: Optional[ControlNetConfig] = None
+    # mesh axes of the ambient mesh (parallel.mesh.set_mesh): dp shards the
+    # window x CFG batch, each rank computing its share of the rows; sp
+    # sends long self-attention to ring attention; tp only names the axis
+    # the UNet was split over and marks the exclusion below: the split is
+    # carried by the modules parallel.sharding.shard_params_tp builds
+    dp_axis: Optional[str] = None
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    # frame parallelism (parallel.frame_parallel): every (window, cfg,
+    # frame) row sharded over this axis; excludes dp, tp and sp
+    fp_axis: Optional[str] = None
+    # one rank's frame-parallel program on this device with StubComm (the
+    # measuring mode): outputs fake at the collective points
+    fp_stub_devices: Optional[int] = None
+
+    def __post_init__(self):
+        if (self.fp_axis is not None or self.fp_stub_devices is not None) and (
+                self.dp_axis or self.tp_axis or self.sp_axis):
+            raise ValueError("frame parallelism (fp_axis, fp_stub_devices) excludes dp_axis, "
+                             "tp_axis and sp_axis")
 
 
 def _as_list(x) -> list:
     return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _map_rows(fn, v):
+    """``fn`` over a row tensor, or over each entry of a list of them (None
+    kept)."""
+    if isinstance(v, list):
+        return [None if e is None else fn(e) for e in v]
+    return None if v is None else fn(v)
 
 
 def predict_noise(
@@ -109,7 +141,24 @@ def predict_noise(
     skipped). ``control_images`` (B, n_vc + T, 8h, 8w, 3) in [0, 1], the
     condition frames' maps at the head, or one such tensor per ControlNet;
     the PoseGuider takes the first. Returns the CFG-combined noise
-    (B, T, h, w, C) in float32."""
+    (B, T, h, w, C) in float32, the same on every rank of a mesh.
+
+    Under ``spec.fp_axis`` (or ``fp_stub_devices``) the UNet call is the
+    frame-parallel program, with the ControlNet inside it on each rank's
+    rows. Under ``spec.dp_axis`` each rank runs the UNet (and ControlNet and
+    PoseGuider) on its contiguous share of each CFG half's window rows, each
+    half padded to a multiple of the axis size, and the outputs are
+    gathered."""
+    with sharding_ctx(dp=spec.dp_axis, tp=spec.tp_axis, sp=spec.sp_axis):
+        return _predict_noise(unet, spec, latents, step_index, text_uc, text_c,
+                              condition_latents, vision_clip_emb, ip_adapter_face_emb, refer_embs,
+                              mid_refer_emb, refer_self_attn_embs, controlnet, control_images,
+                              pose_guider)
+
+
+def _predict_noise(unet, spec, latents, step_index, text_uc, text_c, condition_latents,
+                   vision_clip_emb, ip_adapter_face_emb, refer_embs, mid_refer_emb,
+                   refer_self_attn_embs, controlnet, control_images, pose_guider):
     b, t, h, w, c = latents.shape
     plan = spec.plan
     n_win, wlen = plan.n_windows, plan.window_size
@@ -148,7 +197,7 @@ def predict_noise(
 
     use_cn = controlnet is not None and spec.controlnet_cfg is not None
     use_pg = pose_guider is not None and spec.pose_guider_cfg is not None
-    cn_down = cn_mid = pose_emb = None
+    ctrl = []  # (rows, n_vc + wlen, 8h, 8w, 3) per control tensor
     if use_cn or use_pg:
         if control_images is None:
             raise ValueError("the ControlNet and the PoseGuider need control_images")
@@ -157,28 +206,50 @@ def predict_noise(
         if n_vc > 0:
             idx = np.concatenate([np.broadcast_to(np.arange(n_vc), (n_win, n_vc)), idx], 1)
         idx = torch.as_tensor(idx.reshape(-1), dtype=torch.long)
-
-        def gather_ctrl(imgs: torch.Tensor) -> torch.Tensor:
+        for imgs in _as_list(control_images):
             g = imgs.index_select(1, idx.to(imgs.device))
             g = g.reshape(b * n_win, n_vc + wlen, *imgs.shape[2:])
-            return torch.cat([g] * reps, dim=0).reshape(-1, *imgs.shape[2:]).to(dtype)
+            ctrl.append(torch.cat([g] * reps, dim=0).to(dtype))
 
+    t_step = float(spec.scheduler.timesteps[step_index])
+    unet_kw = dict(
+        down_block_refer_embs=None if refer_embs is None else [tile_rows(e) for e in refer_embs],
+        mid_block_refer_emb=None if mid_refer_emb is None else tile_rows(mid_refer_emb),
+        refer_self_attn_embs=None if refer_self_attn_embs is None else [
+            None if e is None else tile_rows(e) for e in refer_self_attn_embs],
+        vision_clip_emb=None if vision_clip_emb is None else tile_rows(vision_clip_emb),
+        ip_adapter_face_emb=None if ip_adapter_face_emb is None else tile_rows(
+            ip_adapter_face_emb),
+    )
+    rows = model_in.shape[0]
+    fp = spec.fp_axis is not None or spec.fp_stub_devices is not None
+    groups = 2 if spec.do_cfg else 1
+    if spec.dp_axis is not None:
+        # each CFG half sharded on its own: every rank holds [uncond_i;
+        # cond_i], so the UNet's B // 2 split holds on the local rows
+        local = functools.partial(batch_sharding, axis=spec.dp_axis, groups=groups)
+        model_in, text = local(model_in), local(text)
+        cond = None if cond is None else local(cond)
+        ctrl = [local(g) for g in ctrl]
+        unet_kw = {k: _map_rows(local, v) for k, v in unet_kw.items()}
+
+    cn_down = cn_mid = pose_emb = None
     if use_pg:
-        pose_emb = pose_guider_apply(pose_guider, gather_ctrl(_as_list(control_images)[0]))
+        pose_emb = pose_guider_apply(pose_guider, ctrl[0].reshape(-1, *ctrl[0].shape[2:]))
+    cn_frames = [g.reshape(-1, *g.shape[2:]) for g in ctrl] if use_cn else []
     if use_cn:
         nets = _as_list(controlnet)
-        images = [gather_ctrl(ci) for ci in _as_list(control_images)]
-        if len(images) == 1:
-            images = images * len(nets)
+        if len(cn_frames) == 1:
+            cn_frames = cn_frames * len(nets)
         scales = spec.controlnet_scale
         scales = list(scales) if isinstance(scales, tuple) else [scales] * len(nets)
+    if use_cn and not fp:
         # the ControlNet takes the spliced (condition + window) latents
         cn_lat = model_in if cond is None else torch.cat([cond, model_in], dim=1)
         nf = cn_lat.shape[1]
         frames = cn_lat.reshape(-1, *cn_lat.shape[2:])
         text_frames = text.repeat_interleave(nf, 0).to(dtype)
-        t_step = float(spec.scheduler.timesteps[step_index])
-        for net, ci, cs in zip(nets, images, scales):
+        for net, ci, cs in zip(nets, cn_frames, scales):
             d_i, m_i = controlnet_apply(net, frames, t_step, text_frames, ci,
                                         conditioning_scale=cs)
             if cn_down is None:
@@ -187,24 +258,27 @@ def predict_noise(
                 cn_down = [a + d for a, d in zip(cn_down, d_i)]
                 cn_mid = cn_mid + m_i
 
-    out = unet3d_apply(
-        unet, model_in, float(spec.scheduler.timesteps[step_index]), text.to(dtype),
+    unet_fn = unet3d_apply
+    if fp:
+        unet_fn = functools.partial(
+            unet3d_apply_fp, axis=spec.fp_axis or "fp",
+            comm=None if spec.fp_stub_devices is None else StubComm(spec.fp_stub_devices))
+        if use_cn:  # each rank runs the (frame-local) trunk on its own rows
+            unet_kw["controlnet"] = dict(nets=nets, scales=[float(x) for x in scales],
+                                         images=cn_frames, timestep=t_step)
+    out = unet_fn(
+        unet, model_in, t_step, text.to(dtype),
         condition_latents=cond, gen_index=gen_index, cond_index=cond_index,
         do_cfg=spec.do_cfg, motion_speed=spec.motion_speed,
         skip_temporal=spec.skip_temporal,
-        down_block_refer_embs=None if refer_embs is None else [tile_rows(e) for e in refer_embs],
-        mid_block_refer_emb=None if mid_refer_emb is None else tile_rows(mid_refer_emb),
-        refer_self_attn_embs=None if refer_self_attn_embs is None else [
-            None if e is None else tile_rows(e) for e in refer_self_attn_embs],
         refer_self_attn_mode=None if refer_self_attn_embs is None else "read",
-        vision_clip_emb=None if vision_clip_emb is None else tile_rows(vision_clip_emb),
         ip_adapter_scale=spec.ip_adapter_scale,
-        ip_adapter_face_emb=None if ip_adapter_face_emb is None else tile_rows(
-            ip_adapter_face_emb),
         ip_adapter_face_scale=spec.ip_adapter_face_scale,
         controlnet_down_residuals=cn_down, controlnet_mid_residual=cn_mid,
-        pose_guider_emb=pose_emb,
+        pose_guider_emb=pose_emb, **unet_kw,
     )
+    if spec.dp_axis is not None:
+        out = replicated(out, rows, axis=spec.dp_axis, groups=groups)
     if cond is not None:
         out = take_frames(out, gen_index)
 

@@ -156,13 +156,22 @@ def _source_windows(video_frames, time_size: int, b: int) -> Tuple[Iterator, Tup
 
 class MusevPipeline:
     def __init__(self, models: MusevModels, scheduler_config: ScheduleConfig = ScheduleConfig(),
-                 scheduler_name: str = "euler", scheduler_kwargs: Optional[dict] = None):
+                 scheduler_name: str = "euler", scheduler_kwargs: Optional[dict] = None,
+                 dp_axis: Optional[str] = None, fp_axis: Optional[str] = None, mesh=None):
         """``scheduler_kwargs`` go to the sampler family's ``create`` (e.g.
-        Euler's ``s_churn``, DDIM's ``eta``)."""
+        Euler's ``s_churn``, DDIM's ``eta``). ``dp_axis`` shards the denoise
+        step's window x CFG batch, ``fp_axis`` its frame rows
+        (``parallel.frame_parallel``), over that axis of the ambient mesh
+        (``parallel.mesh.set_mesh``, which the CLIs' ``cli_topology``
+        enters); with ``mesh`` the VAE decode shards the frames over the
+        same axis. Every rank ends a call with the whole clip."""
         self.m = models
         self.scheduler_config = scheduler_config
         self.scheduler_name = scheduler_name
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
+        self.dp_axis = dp_axis
+        self.fp_axis = fp_axis
+        self.mesh = mesh
         self._loras: List[tuple] = []  # (state_dict, scale): the fuse log
 
     # -- adapters (LoRA / textual inversion / LCM) --------------------------
@@ -231,7 +240,9 @@ class MusevPipeline:
         return vae_encode_video(self.m.vae, x.to(self.m.dtype))
 
     def decode_latents(self, latents: torch.Tensor, segment: int = 16) -> np.ndarray:
-        vid = vae_decode_video(self.m.vae, latents.to(self.m.dtype), segment)
+        axis = self.fp_axis or self.dp_axis
+        mesh_kw = dict(mesh=self.mesh, axis=axis) if self.mesh is not None and axis else {}
+        vid = vae_decode_video(self.m.vae, latents.to(self.m.dtype), segment, **mesh_kw)
         return ((vid.float().clamp(-1, 1) + 1.0) / 2.0).cpu().numpy()
 
     # -- generation --------------------------------------------------------
@@ -264,6 +275,8 @@ class MusevPipeline:
             motion_speed=motion_speed,
             ip_adapter_scale=ip_adapter_scale,
             guidance_rescale=guidance_rescale,
+            dp_axis=self.dp_axis,
+            fp_axis=self.fp_axis,
         )
 
     def generate_condition_latents(

@@ -26,16 +26,20 @@ around its Pallas kernels instead, which have no VJP.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .models.controlnet import ControlNet, controlnet_apply
 from .models.referencenet import ReferenceNet2D, referencenet_apply
 from .models.unet3d import UNet3D, UNet3DConfig, unet3d_apply
 from .ops.noise import video_fusion_noise
+from .parallel.frame_parallel import unet3d_apply_fp
+from .parallel.mesh import all_reduce_sum, axis_group, axis_rank, axis_size
 from .schedulers.base import ScheduleConfig
 
 
@@ -47,8 +51,15 @@ class TrainSpec:
     w_ind_noise: float = 0.5
     n_vision_cond: int = 1
     grad_checkpoint: bool = True
-    # frame-parallel training over a device axis: ROADMAP queue 1, item 15
+    # frame-parallel training: the UNet's (batch, frame) rows sharded over
+    # this axis of the ambient mesh (parallel.frame_parallel); the grads
+    # flow back through its collectives, and sync_grads sums the replicated
+    # params' grads over the ranks
     fp_axis: Optional[str] = None
+    # data-parallel training: each rank takes its share of the batch (the
+    # JAX package shards the batch by its sharding instead); sync_grads
+    # averages the grads over the ranks
+    dp_axis: Optional[str] = None
     # make_optimizer / train_step_opt: "sgd" or "adamw"
     optimizer: str = "adamw"
     weight_decay: float = 1e-2
@@ -130,18 +141,57 @@ def diffusion_loss(
     ``n_vision_cond`` frames act as the clean vision condition; the rest are
     noised at ``timesteps`` (B,) with ``noise`` (B, T - n_vc, h, w, C), drawn
     from ``generator`` where not given. ``spec.grad_checkpoint`` recomputes
-    each UNet block layer in the backward (``unet3d_core``)."""
-    if spec.fp_axis is not None:
-        raise NotImplementedError("frame-parallel training (fp_axis) is not ported to "
-                                  "musev_torch yet (ROADMAP queue 1, item 15)")
+    each UNet block layer in the backward (``unet3d_core``).
+
+    On a mesh every rank passes the whole batch and draws the same global
+    timesteps and noise. Under ``spec.fp_axis`` the UNet call is the
+    frame-parallel program and the loss is the whole batch's on every rank,
+    its backward reaching each rank's share of the grads. Under
+    ``spec.dp_axis`` each rank takes its contiguous share of the batch; the
+    value returned is the whole batch's loss and the backward gives this
+    rank's share, weighted so that the mean over the ranks is the whole
+    batch's grad. ``sync_grads`` completes either after the backward."""
+    if spec.fp_axis is not None and spec.dp_axis is not None:
+        raise ValueError("fp_axis excludes dp_axis")
     _check_cfg(unet, spec.unet_cfg, "unet_cfg")
     n_vc = spec.n_vision_cond
     cond, noisy, noise, timesteps = _noised(latents, spec.schedule, spec.w_ind_noise, n_vc,
                                             generator, timesteps, noise)
-    pred = unet3d_apply(unet, noisy, timesteps.float(), text_emb,
-                        grad_checkpoint=spec.grad_checkpoint,
-                        **_cond_kw(n_vc, latents.shape[1], cond))
+    t = latents.shape[1]
+    if spec.dp_axis is not None:
+        n, rank = axis_size(spec.dp_axis), axis_rank(spec.dp_axis)
+        b = latents.shape[0]
+        if b < n:
+            raise ValueError(f"dp training: a batch of {b} over {n} ranks leaves a rank none")
+        cond, noisy, noise, timesteps, text_emb = (
+            torch.tensor_split(x, n)[rank] for x in (cond, noisy, noise, timesteps, text_emb))
+        pred = unet3d_apply(unet, noisy, timesteps.float(), text_emb,
+                            grad_checkpoint=spec.grad_checkpoint, **_cond_kw(n_vc, t, cond))
+        local = _mse(pred, noise, n_vc) * (n * noisy.shape[0] / b)
+        total = all_reduce_sum(local.detach(), axis_group(spec.dp_axis)) / n
+        return local + (total - local).detach()
+    unet_fn = unet3d_apply
+    if spec.fp_axis is not None:
+        unet_fn = functools.partial(unet3d_apply_fp, axis=spec.fp_axis)
+    pred = unet_fn(unet, noisy, timesteps.float(), text_emb,
+                   grad_checkpoint=spec.grad_checkpoint, **_cond_kw(n_vc, t, cond))
     return _mse(pred, noise, n_vc)
+
+
+def sync_grads(params: Sequence[torch.Tensor], spec: TrainSpec) -> None:
+    """After the backward of ``diffusion_loss`` on a mesh: the grads summed
+    over the ranks of ``spec.fp_axis`` (each rank holds the part its rows
+    gave), averaged over those of ``spec.dp_axis``; nothing without either."""
+    for axis, mean in ((spec.fp_axis, False), (spec.dp_axis, True)):
+        if axis is None:
+            continue
+        group = axis_group(axis)
+        n = dist.get_world_size(group)
+        for p in params:
+            if p.grad is not None:
+                dist.all_reduce(p.grad, group=group)
+                if mean:
+                    p.grad.div_(n)
 
 
 def _sgd(params: Sequence[torch.Tensor], lr: float) -> None:
@@ -164,6 +214,7 @@ def train_step(unet: UNet3D, spec: TrainSpec, latents: torch.Tensor, text_emb: t
     loss = diffusion_loss(unet, spec, latents, text_emb, generator,
                           timesteps=timesteps, noise=noise)
     loss.backward()
+    sync_grads(params, spec)
     _sgd(params, spec.learning_rate)
     return loss.detach()
 
@@ -197,6 +248,7 @@ def train_step_opt(unet: UNet3D, optimizer: torch.optim.Optimizer, spec: TrainSp
     loss = diffusion_loss(unet, spec, latents, text_emb, generator,
                           timesteps=timesteps, noise=noise)
     loss.backward()
+    sync_grads(params, spec)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)

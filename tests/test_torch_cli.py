@@ -167,18 +167,20 @@ def test_video2video_cli_on_a_pose_video(tmp_path, captured):
 
 
 # (the case's position in the list before the adapter flags, --scheduler and
-# --ip_adapter_face_checkpoint were ported: the test ids keep it, cli, flags,
-# what the error names). --parallel fp / dp is refused on 2 or more devices
-# only; on one it runs without a mesh (test_parallel_on_one_device_...).
+# --ip_adapter_face_checkpoint were ported: the test ids keep it and the
+# label of what these cases once refused, cli, flags, what the error names).
+# --parallel fp / dp with 2 or more visible CUDA devices and no process group
+# raises before any model is built and names torchrun (one process per
+# device); on one device it runs without a mesh (test_parallel_on_one_device_...).
 _REFUSED = [
-    (0, t2v, ["--parallel", "fp"], "item 15"),
-    (14, v2v, ["--parallel", "dp"], "item 15"),
+    (0, t2v, ["--parallel", "fp"], "item 15", "torchrun"),
+    (14, v2v, ["--parallel", "dp"], "item 15", "torchrun"),
 ]
 
 
 @pytest.mark.parametrize("cli,flags,match", [
-    pytest.param(cli, flags, match, id=f"{cli.__name__}-flags{i}-{match}")
-    for i, cli, flags, match in _REFUSED])
+    pytest.param(cli, flags, match, id=f"{cli.__name__}-flags{i}-{label}")
+    for i, cli, flags, label, match in _REFUSED])
 def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli, flags, match):
     def built(*a, **k):
         raise AssertionError("models were built")
@@ -186,17 +188,20 @@ def test_refused_flags_raise_before_models_are_built(monkeypatch, tmp_path, cli,
     monkeypatch.setattr(loader, "build_models", built)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match):
         cli.main(["--test_data_path", str(tmp_path / "tasks.csv"), "--device", "cpu", *flags])
 
 
-def test_cli_topology_matches_the_jax_fallback(monkeypatch):
+def test_cli_topology_matches_the_jax_fallback(monkeypatch, tmp_path):
     """``none``, or ``fp``/``dp`` on one device: no mesh, no pipeline kwargs
     (the JAX ``cli_topology``, mesh.py:52-54; the suite gives JAX 8 virtual
-    devices, so only its ``none`` is compared); an unknown name raises in
-    both."""
+    devices, so its ``none`` is compared there and its 8-device mesh's
+    kwargs with the port's at a world size of 2); an unknown name raises in
+    both. On 2 gloo ranks ``fp`` and ``dp`` return the 1-D mesh over the
+    axis of that name and the JAX keys (``test_torch_parallel``'s ranks)."""
     from musev_tpu.parallel.mesh import cli_topology as j_cli_topology
     from musev_torch.parallel.mesh import cli_topology
+    from test_torch_parallel import cli_topology_world_2
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert j_cli_topology("none")[1] == {}
@@ -210,6 +215,16 @@ def test_cli_topology_matches_the_jax_fallback(monkeypatch):
             topology_fn("tp")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert cli_topology("none")[1] == {}
+    got = cli_topology_world_2(tmp_path)
+    for topology in ("fp", "dp"):
+        j_ctx, j_kwargs = j_cli_topology(topology)
+        with j_ctx:  # jax.set_mesh sets its mesh when called; leaving restores the last
+            pass
+        assert sorted(got[topology]["keys"]) == sorted(j_kwargs)
+        assert got[topology]["axis"] == j_kwargs[f"{topology}_axis"] == topology
+        assert got[topology]["dims"] == list(j_kwargs["mesh"].axis_names) == [topology]
+        assert got[topology]["shape"] == [2] and got[topology]["ambient"]
+    assert got["none"] == []
 
 
 @pytest.mark.parametrize("cli", [t2v, v2v], ids=["text2video", "video2video"])
@@ -235,7 +250,7 @@ def test_clis_build_and_run_inside_the_topology_context(monkeypatch, tmp_path, c
         events.append("build")
         raise RuntimeError("stop after the build")
 
-    monkeypatch.setattr(mesh, "cli_topology", lambda topology: (recorded(), {}))
+    monkeypatch.setattr(mesh, "cli_topology", lambda topology, **kw: (recorded(), {}))
     monkeypatch.setattr(loader, "build_models", built)
     (tmp_path / "tasks.csv").write_text("name,prompt\ncat,a cat\n")
     with pytest.raises(RuntimeError, match="stop after the build"):

@@ -40,9 +40,13 @@ assert {"musev_torch.schedulers.ancestral", "musev_torch.schedulers.lcm",
         "musev_torch.io.dwpose", "musev_torch.io.face_emb", "musev_torch.io.sam",
         "musev_torch.train", "musev_torch.parallel.mesh", "musev_torch.serve.app",
         "musev_torch.utils.checkpoint", "musev_torch.utils.inversion",
-        "musev_torch.utils.logging_util", "musev_torch.utils.profiling"} <= set(names), names
+        "musev_torch.utils.logging_util", "musev_torch.utils.profiling",
+        "musev_torch.parallel.context", "musev_torch.parallel.frame_parallel",
+        "musev_torch.parallel.ring_attention", "musev_torch.parallel.sharding"} <= set(names), names
 for name in names:
     importlib.import_module(name)
+assert musev_torch.make_mesh is musev_torch.parallel.mesh.make_mesh
+assert musev_torch.batch_sharding is musev_torch.parallel.mesh.batch_sharding
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 
@@ -59,5 +63,5 @@ def test_port_imports_without_jax_or_optional_packages(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, loaded = out.stdout.split(" ", 1)
-    assert int(n) >= 61
+    assert int(n) >= 65
     assert "'prompt': 'a cat walking'" in loaded

@@ -379,9 +379,13 @@ def test_refusals():
     cfg = UNet3DConfig(**TINY)
     unet = UNet3D(cfg)
     latents, text = (torch.from_numpy(x) for x in _inputs())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # frame parallelism needs an ambient mesh carrying its axis, as in JAX
+    with pytest.raises(ValueError, match="ambient mesh"):
         train.diffusion_loss(unet, train.TrainSpec(unet_cfg=cfg, fp_axis="fp"), latents, text,
                              torch.Generator())
+    with pytest.raises(ValueError, match="fp_axis excludes dp_axis"):
+        train.diffusion_loss(unet, train.TrainSpec(unet_cfg=cfg, fp_axis="fp", dp_axis="dp"),
+                             latents, text, torch.Generator())
     with pytest.raises(ValueError, match="torch.Generator"):
         train.diffusion_loss(unet, train.TrainSpec(unet_cfg=cfg), latents, text)
     with pytest.raises(ValueError, match="unknown optimizer"):
