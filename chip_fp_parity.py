@@ -100,7 +100,7 @@ def main() -> None:
     from musev_torch.pipelines.loader import init_random_
 
     t0 = time.time()
-    _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
+    _build.build(_build.SOURCES)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip()}", flush=True)

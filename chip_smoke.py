@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA. Phases, each of which fails the script if it fails:
 
-1. build: compile the port's four CUDA sources from ``musev_torch/csrc``
+1. build: compile the port's five CUDA sources from ``musev_torch/csrc``
    (all nvcc at once, with ``-Xptxas -v``) and print the card's name and
    power limit, the registers, spills and any wgmma serialisation note of
    each flash, streaming and short-attention instance, the HGMMA and
@@ -27,7 +27,14 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    kernel at the temporal sites; the pivots (``pivot_rows`` without and
    with the GroupNorm apply, ``unpivot_rows``) at the temporal sites of the
    window batch and of the pose path, bit for bit (the GroupNorm apply
-   within its rounding bound). Each row has the CUDA-event time of the
+   within its rounding bound); the norms (K8 ``group_norm`` with and
+   without SiLU and its statistics alone, K9 ``layer_norm``) at NORM_SITES
+   against their composition run in float64, within one bf16 ulp plus
+   2^-16 of the terms' magnitude, timed beside the plain composition (the
+   route, the yardstick) and the library's call in bf16 where it computes
+   the same function (``F.group_norm`` on the channels-first view of x for
+   K8 without SiLU, ``F.layer_norm`` for K9); the bound is one bf16 read
+   and one write of x. Each row has the CUDA-event time of the
    wrapper's call (``ms``) and the kernel's own device time per call
    (``device_ms``: torch.profiler's durations of the kernel, matched by
    name, over the timed calls; "not measured" unless the profiler recorded
@@ -152,8 +159,9 @@ PyTorch built for CUDA. Phases, each of which fails the script if it fails:
    bf16 autocast on one clip of 1 + 12 seeded latent frames of 72x72 and a
    seeded (1, 77, 768) text embedding, TRAIN_STEPS steps timed, a fourth
    profiled: fails unless every loss and grad is finite, the sampled master
-   weights moved, and flash with stats, K4, K6 and K7 launched in the steps
-   and K5 in their backward; prints the step times, peak memory and busy
+   weights moved, flash with stats, K4, K6, K7, K8 (with SiLU, and its
+   statistics for K6) and K9 launched in the steps and K5 in their
+   backward, and no norm took its plain composition; prints the step times, peak memory and busy
    share; (3) the masters and the AdamW state saved with
    ``utils.checkpoint.save_state`` and restored: the step after the round
    trip must equal the step without it bit for bit (deterministic
@@ -282,6 +290,24 @@ PIVOT_SITES = [
     ("pose L0 temporal", 2, 13, 72 * 72, 320),
 ]
 POSE_HEAD = "pose L0 temporal"  # the reported site of the pivots
+# (kernel, site, n, m, c, groups): K8 with SiLU at the L0 resnet (78 frame
+# rows of 72^2 x 320), the temporal conv's video GroupNorm (6 window rows x
+# 13 frames) and the VAE decode's 16-frame segment (576^2 x 128); without it
+# at the L0 spatial transformer; its statistics alone (scale and shift for
+# K6) at the L0 temporal transformer; K9 at the spatial transformers' rows
+# (m = 1) of L0-L2 and CLIP text's; the first site of each is reported
+NORM_SITES = [
+    ("group_norm_silu", "L0 resnet", 78, 72 * 72, 320, 32),
+    ("group_norm_silu", "L0 temporal conv", 6, 13 * 72 * 72, 320, 32),
+    ("group_norm_silu", "VAE decode (16 frames)", 16, 576 * 576, 128, 32),
+    ("group_norm", "L0 spatial transformer", 78, 72 * 72, 320, 32),
+    ("group_norm_scale_shift", "L0 temporal transformer", 6, 13 * 72 * 72, 320, 32),
+    ("layer_norm", "L0 spatial transformer", 78 * 72 * 72, 1, 320, None),
+    ("layer_norm", "L1 spatial transformer", 78 * 36 * 36, 1, 640, None),
+    ("layer_norm", "L2 spatial transformer", 78 * 18 * 18, 1, 1280, None),
+    ("layer_norm", "CLIP text", 2 * 77, 1, 768, None),
+]
+NORM_SLACK = 2.0**-16  # of the terms' magnitude: float32 sums in another order
 # the reference's default operating point (bench.py:48-57): no step cut needed
 T2V_ARGS = dict(
     prompt="a girl dancing on the beach", negative_prompt="bad quality",
@@ -299,13 +325,19 @@ V2V_ARGS = dict(
 )
 VIDEO_SHAPE = (1, 25, 576, 576, 3)  # the JAX pipeline's: condition frame + 24
 KERNELS = ("flash_attention", "flash_attention_parts", "flash_stream", "short_attention",
-           "pivot_rows", "pivot_rows_gn", "unpivot_rows", "flash_attention_train")
+           "pivot_rows", "pivot_rows_gn", "unpivot_rows", "flash_attention_train",
+           "group_norm", "group_norm_silu", "group_norm_scale_shift", "layer_norm")
+# the norms' calls that took their plain composition (none on the paths)
+NORM_PLAIN = ("group_norm_plain", "group_norm_scale_shift_plain", "layer_norm_plain")
 # the CUDA functions each wrapper launches, as the profiler names them
 FLASH_FUNCS = ("flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel")
+GN_FUNCS = ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")
 DEVICE_FUNCS = dict(flash_attention=FLASH_FUNCS, flash_attention_parts=FLASH_FUNCS,
                     flash_stream=("flash_stream_kernel",), short_attention=("short_attn_kernel",),
                     pivot_rows=("relayout_kernel",), pivot_rows_gn=("relayout_kernel",),
-                    unpivot_rows=("relayout_kernel",), flash_attention_train=FLASH_FUNCS)
+                    unpivot_rows=("relayout_kernel",), flash_attention_train=FLASH_FUNCS,
+                    group_norm=GN_FUNCS, group_norm_silu=GN_FUNCS,
+                    group_norm_scale_shift=GN_FUNCS[:2], layer_norm=("ln_rows_kernel",))
 STREAM_HEAD_DIMS = (40, 64, 80, 160)  # one per instance
 # Kernel against plain version, both scaled to what is compared: the kernels
 # round P and the output to bf16 (8-bit mantissa, relative rounding error up
@@ -496,13 +528,18 @@ def kernel_counters():
     from musev_torch.ops.attention import MemEfficientAttention
     from musev_torch.ops.kernels.flash_attention import flash_attention, flash_attention_parts
     from musev_torch.ops.kernels.flash_stream import flash_stream
+    from musev_torch.ops.kernels.norm import group_norm, group_norm_scale_shift, layer_norm
     from musev_torch.ops.kernels.pivot import pivot_rows, unpivot_rows
     from musev_torch.ops.kernels.short_attention import short_attention_packed
 
-    return dict(zip(KERNELS, ((flash_attention, "launches"), (flash_attention_parts, "launches"),
-                              (flash_stream, "launches"), (short_attention_packed, "launches"),
-                              (pivot_rows, "launches"), (pivot_rows, "gn_launches"),
-                              (unpivot_rows, "launches"), (MemEfficientAttention, "launches"))))
+    return dict(zip(KERNELS + NORM_PLAIN, (
+        (flash_attention, "launches"), (flash_attention_parts, "launches"),
+        (flash_stream, "launches"), (short_attention_packed, "launches"),
+        (pivot_rows, "launches"), (pivot_rows, "gn_launches"), (unpivot_rows, "launches"),
+        (MemEfficientAttention, "launches"), (group_norm, "launches"),
+        (group_norm, "silu_launches"), (group_norm_scale_shift, "launches"),
+        (layer_norm, "launches"), (group_norm, "plain_calls"),
+        (group_norm_scale_shift, "plain_calls"), (layer_norm, "plain_calls"))))
 
 
 def zero_counts() -> None:
@@ -582,7 +619,7 @@ def phase_build(torch):
     from musev_torch.ops.kernels.flash_stream import plan
 
     t0 = time.time()
-    outputs = _build.build(["flash_attention", "short_attention", "flash_stream", "pivot"])
+    outputs = _build.build(_build.SOURCES)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -705,6 +742,7 @@ def phase_kernels(torch):
               f"bound {bms:.3f} ms ({by})")
         del qkv, q, k, v, qt, kt, vt, out, want
     pivot_sites(torch, gen, rows)
+    norm_sites(torch, gen, rows)
     print(f"phase kernels: {time.time() - t0:.1f} s")
     return rows, floors
 
@@ -771,10 +809,105 @@ def pivot_sites(torch, gen, rows: dict) -> None:
         del x, y, scale, shift
 
 
+def norm_sites(torch, gen, rows: dict) -> None:
+    """K8 and K9 at NORM_SITES on bf16 x of unit spread about 0.3 with bf16
+    weights 1 + N(0, 0.5) and biases N(0, 0.5), as the wrapper takes them:
+    within one bf16 ulp of their composition run in float64 on the same x,
+    plus NORM_SLACK of the terms' magnitude (scale and shift within
+    NORM_SLACK of theirs); timed beside the plain composition in bf16 (the
+    route before the kernels) and the library's call in bf16 where it
+    computes the same function: ``F.group_norm`` on the channels-first view
+    of x (its own layout copy included) for K8 without SiLU,
+    ``F.layer_norm`` for K9. The
+    bound is bytes: x read once and written once in bf16 (read once for the
+    statistics alone), so a two-pass GroupNorm reaches at most 67 %."""
+    import torch.nn.functional as F
+
+    from musev_torch.ops.kernels.norm import (
+        group_norm,
+        group_norm_plain,
+        group_norm_scale_shift,
+        group_norm_scale_shift_plain,
+        layer_norm,
+        layer_norm_plain,
+    )
+
+    def ulp(x, mantissa_bits):
+        return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - mantissa_bits)
+
+    for name, site, n, m, c, groups in NORM_SITES:
+        x = (0.3 + torch.randn(n, m, c, device="cuda", generator=gen)).bfloat16()
+        w = (1 + 0.5 * torch.randn(c, device="cuda", generator=gen)).bfloat16()
+        b = (0.5 * torch.randn(c, device="cuda", generator=gen)).bfloat16()
+        silu = name == "group_norm_silu"
+        xd = x.double()
+        if name == "layer_norm":
+            fn = lambda: layer_norm(x, w, b)  # noqa: E731
+            plain = lambda: layer_norm_plain(x, w, b)  # noqa: E731
+            lib = lambda: F.layer_norm(x, (c,), w, b)  # noqa: E731
+            want = F.layer_norm(xd, (c,), w.double(), b.double(), 1e-5)
+            var, mean = torch.var_mean(xd, dim=-1, correction=0, keepdim=True)
+            mag = (xd.abs() + mean.abs()) * torch.rsqrt(var + 1e-5) * w.double().abs() \
+                + b.double().abs()
+            nbytes, per_call = 2.0 * 2 * x.numel(), 1
+        else:
+            var, mean = torch.var_mean(xd.view(n, m, groups, -1), dim=(1, 3), correction=0)
+            scale = (torch.rsqrt(var + 1e-5)[..., None] * w.double().view(groups, -1)).view(n, c)
+            shift = b.double() - mean.repeat_interleave(c // groups, dim=1) * scale
+            lib = None
+            if name == "group_norm":
+                lib = lambda: F.group_norm(x.permute(0, 2, 1), groups, w, b)  # noqa: E731
+            if name == "group_norm_scale_shift":
+                fn = lambda: group_norm_scale_shift(x, w, b, groups, 1e-5)  # noqa: E731
+                plain = lambda: group_norm_scale_shift_plain(x, w, b, groups, 1e-5)  # noqa: E731
+                nbytes, per_call = 2.0 * x.numel(), 2
+            else:
+                fn = lambda: group_norm(x, w, b, groups, 1e-5, silu=silu)  # noqa: E731
+                plain = lambda: group_norm_plain(x, w, b, groups, 1e-5, silu=silu)  # noqa: E731
+                want = xd * scale[:, None] + shift[:, None]
+                want = F.silu(want) if silu else want
+                terms = b.double().abs() + (b.double() - shift).abs()  # bias, mean * scale
+                mag = xd.abs() * scale[:, None].abs() + terms[:, None]
+                nbytes, per_call = 2.0 * 2 * x.numel(), 3
+        got = fn()
+        if name == "group_norm_scale_shift":
+            ok = bool(((got[0] - scale).abs() <= NORM_SLACK * scale.abs()).all()
+                      and ((got[1] - shift).abs()
+                           <= NORM_SLACK * (b.double().abs() + (b.double() - shift).abs())).all())
+            max_err = max((got[0] - scale).abs().max().item(), (got[1] - shift).abs().max().item())
+            rule = "scale, shift within 2^-16"
+        else:
+            err = (got.double() - want).abs()
+            ok = bool((err <= ulp(want, 7) + NORM_SLACK * mag).all())
+            max_err = err.max().item()
+            rule = "<= 1 bf16 ulp + 2^-16 of the terms"
+            del want, mag, err
+        del got, xd
+        print(f"{name} {site}: max abs err {max_err:.2e} ({rule}: {'ok' if ok else 'FAILED'})")
+        if not ok:
+            fail(f"{name} disagrees with its plain version at {site}")
+        tm, plain_ms = timed(torch, name, fn, per_call), cuda_ms(torch, plain)
+        lt = library_timed(torch, lib)
+        bms, by = bound_ms(0.0, nbytes)
+        share = None if tm["device_ms"] is None else bms / tm["device_ms"]
+        rows[name].append(dict(site=site, shape=[n, m, c], groups=groups, max_abs_err=max_err,
+                               **tm, plain_ms=plain_ms, **lt, bound_ms=bms, bound_by=by,
+                               share=share))
+        lib_txt = "none" if lib is None else (
+            f"{lt['library_ms']:.3f} ms, device {fmt_ms(lt['library_device_ms'])}")
+        share_txt = "not measured" if share is None else f"{100 * share:.1f} %"
+        print(f"{name} {site} (n,m,c)={(n, m, c)}: {tm['ms']:.3f} ms, device "
+              f"{fmt_ms(tm['device_ms'])}, plain {plain_ms:.3f} ms, library {lib_txt}, "
+              f"bound {bms:.3f} ms ({by}), share {share_txt}")
+        del x, w, b
+        torch.cuda.empty_cache()
+
+
 def phase_path(torch, preset: str, method: str, args: dict, need: tuple):
     """``MusevPipeline.<method>`` of ``preset`` at full width; fails unless
-    the video has the JAX pipeline's shape, is finite in [0, 1], and every
-    kernel in ``need`` launched. Returns (record, models, result)."""
+    the video has the JAX pipeline's shape, is finite in [0, 1], every
+    kernel in ``need`` launched, and no norm took its plain composition.
+    Returns (record, models, result)."""
     import numpy as np
 
     from musev_torch.pipelines.loader import build_models
@@ -803,6 +936,8 @@ def phase_path(torch, preset: str, method: str, args: dict, need: tuple):
     for name in need:
         if launches[name] <= 0:
             fail(f"the {preset} path launched {name} no time")
+    if any(launches[name] for name in NORM_PLAIN):
+        fail(f"the {preset} path ran a norm's plain composition: {launches}")
     profile, again = profile_path(torch, run, args)
     rerun_change = float(np.abs(again.latents - res.latents).max())
     rerun_frames = int(np.abs(to_uint8(again.videos).astype(np.int16) - to_uint8(res.videos)).max())
@@ -2286,9 +2421,11 @@ def phase_train(torch, tmp: Path) -> dict:
     if moved != len(sample):
         fail(f"the AdamW steps left {len(sample) - moved} of {len(sample)} sampled params")
     for name in ("flash_attention_train", "short_attention", "pivot_rows_gn", "unpivot_rows",
-                 "pivot_rows"):
+                 "pivot_rows", "group_norm_silu", "group_norm_scale_shift", "layer_norm"):
         if launches[name] <= 0:
             fail(f"the training steps launched {name} no time")
+    if any(launches[name] for name in NORM_PLAIN):
+        fail(f"the training steps ran a norm's plain composition: {launches}")
     profile, _ = profile_path(torch, lambda: step(200), {})
 
     # (3) the checkpoint: the state after the profiled step, one more step
@@ -2372,6 +2509,8 @@ def phase_train(torch, tmp: Path) -> dict:
           f"{super_launches}; grads per module {grads}; sampled params after the step equal "
           f"p - lr * g {applied}; share moved {moved}; share of the unmoved whose lr * |g| is "
           f"under half the float32 spacing in every element {below}")
+    if any(super_launches[name] for name in NORM_PLAIN):
+        fail(f"the super bundle's step ran a norm's plain composition: {super_launches}")
     ok = math.isfinite(super_loss.item()) and all(
         g["finite"] and g["reached"] > 0 and not g["zero"] for g in grads.values())
     if not ok or not all(applied.values()):
@@ -2458,11 +2597,13 @@ def float32_references(torch):
     """Float32 stand-ins for the kernels (which take bf16 only), for a
     float32 reference call of the UNet on the card: SDPA for flash
     attention (a library call, here only as a reference), the plain
-    versions of the short-attention kernel and of the pivots; TF32 off."""
+    versions of the short-attention kernel, the pivots and the norms; TF32
+    off."""
     import torch.nn.functional as F
 
-    from musev_torch.models import unet_blocks
+    from musev_torch.models import common, unet_blocks
     from musev_torch.ops import attention as attention_mod
+    from musev_torch.ops.kernels import norm
     from musev_torch.ops.kernels.pivot import pivot_rows_plain, unpivot_rows_plain
     from musev_torch.ops.kernels.short_attention import short_attention_plain
     from musev_torch.parallel import frame_parallel
@@ -2473,6 +2614,8 @@ def float32_references(torch):
 
     patches = [(attention_mod, "flash_attention", sdpa),
                (unet_blocks, "short_attention_packed", short_attention_plain)]
+    patches += [(common, name, getattr(norm, f"{name}_plain"))
+                for name in ("group_norm", "group_norm_scale_shift", "layer_norm")]
     for mod in (unet_blocks, frame_parallel):
         patches += [(mod, "pivot_rows", pivot_rows_plain), (mod, "unpivot_rows", unpivot_rows_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -2723,7 +2866,8 @@ def main() -> None:
     t0 = time.time()
     card, build = phase_build(torch)
     rows, exp2_floors = phase_kernels(torch)
-    need = ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows")
+    need = ("flash_attention", "short_attention", "pivot_rows_gn", "unpivot_rows",
+            "group_norm", "group_norm_silu", "group_norm_scale_shift", "layer_norm")
     paths = {}
     paths["musev"], models, _ = phase_path(torch, "musev", "text2video", T2V_ARGS, need)
     del models
@@ -2813,6 +2957,14 @@ def main() -> None:
               f"{flash_py}:77,297", variant="with_stats=True (:79-80) as the forward of "
               "ops.attention.MemEfficientAttention, the training route; its backward is "
               "plain PyTorch"),
+        entry("group_norm_silu", "musev_torch/csrc/norm.cu", "none (XLA's GroupNorm)",
+              variant="K8: statistics, their merge, the apply with SiLU"),
+        entry("group_norm", "musev_torch/csrc/norm.cu", "none (XLA's GroupNorm)",
+              variant="K8 without SiLU"),
+        entry("group_norm_scale_shift", "musev_torch/csrc/norm.cu", "none (XLA's GroupNorm)",
+              variant="K8's statistics and merge alone: scale and shift for K6"),
+        entry("layer_norm", "musev_torch/csrc/norm.cu", "none (XLA's LayerNorm)",
+              variant="K9"),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -5,7 +5,9 @@ as in the JAX package: images ``(N, H, W, C)``, videos ``(B, T, H, W, C)``,
 sequences ``(N, S, C)``. A convolution sees its input as an NCHW view of that
 memory (``channels_last`` format), so cuDNN runs its NHWC kernels and no copy
 is made either way. GroupNorm and LayerNorm statistics run in float32 whatever
-the activation dtype (the fp32 norm islands of the bf16 network).
+the activation dtype (the fp32 norm islands of the bf16 network): on CUDA in
+the norm kernels (``ops/kernels/norm.py``), which write x's dtype once, on the
+CPU and under autograd in their plain float32 composition.
 """
 
 from __future__ import annotations
@@ -14,38 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def group_norm_scale_shift(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
-):
-    """The float32 (N, C) ``scale`` and ``shift`` of GroupNorm over the last
-    (channel) axis of a channels-last tensor: the normalised ``x`` is
-    ``x * scale + shift`` per (n, c), statistics taken over each sample."""
-    n, c = x.shape[0], x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"group_norm: channels {c} not divisible by groups {num_groups}")
-    xf = x.reshape(n, -1, num_groups, c // num_groups).float()
-    var, mean = torch.var_mean(xf, dim=(1, 3), correction=0, keepdim=True)
-    scale = torch.rsqrt(var + eps) * weight.float().view(1, 1, num_groups, -1)
-    shift = bias.float().view(1, 1, num_groups, -1) - mean * scale
-    return scale.reshape(n, c), shift.reshape(n, c)
-
-
-def group_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
-) -> torch.Tensor:
-    """GroupNorm over the last (channel) axis of a channels-last tensor."""
-    n, c = x.shape[0], x.shape[-1]
-    xf = x.reshape(n, -1, c).float()
-    scale, shift = group_norm_scale_shift(xf, weight, bias, num_groups, eps)
-    return torch.addcmul(shift[:, None], xf, scale[:, None]).reshape(x.shape).to(x.dtype)
-
-
-def layer_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
-) -> torch.Tensor:
-    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
-    return y.to(x.dtype)
+from ..ops.kernels.norm import group_norm, group_norm_scale_shift, layer_norm
 
 
 class GroupNorm(nn.Module):
@@ -56,8 +27,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        """GroupNorm of x, then SiLU where ``silu`` (fused on CUDA)."""
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu)
 
     def scale_shift(self, x: torch.Tensor):
         """``group_norm_scale_shift`` with this module's parameters."""

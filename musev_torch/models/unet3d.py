@@ -515,7 +515,7 @@ def unet3d_core(
             out_hw = skips[-1].shape[1:3] if skips else None
             x = block.upsamplers[0](x, out_hw=out_hw)
 
-    x = F.silu(unet.conv_norm_out(x))
+    x = unet.conv_norm_out(x, silu=True)
     return unet.conv_out(x)
 
 

@@ -53,11 +53,11 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, H, W, C); temb (N, temb_dim) or None (the VAE's resnets)."""
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         if temb is not None:
             t = temb if self.skip_time_act else F.silu(temb)
             h = h + self.time_emb_proj(t)[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -271,7 +271,8 @@ class SpatialTransformer(nn.Module):
 
 
 def _temporal_conv_stage(dim: int, groups: int, with_dropout: bool) -> nn.ModuleList:
-    # reference Sequential indices: (GN, SiLU, Conv) or (GN, SiLU, Dropout, Conv)
+    # reference Sequential indices: (GN, SiLU, Conv) or (GN, SiLU, Dropout, Conv); the
+    # SiLU entry keeps the indices and is not called (the GroupNorm fuses it)
     mods = [GroupNorm(groups, dim), nn.SiLU()]
     if with_dropout:
         mods.append(nn.Identity())
@@ -297,7 +298,7 @@ class TemporalConvLayer(nn.Module):
         v = x.reshape(bt // num_frames, num_frames, h, w, c)
         identity = v
         for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
-            v = stage[-1](F.silu(stage[0](v)))
+            v = stage[-1](stage[0](v, silu=True))
         if cond_mask is not None:
             v = v * cond_mask[None, :, None, None, None].to(v.dtype)
         v = identity + self.temporal_weight.abs().to(v.dtype) * v

@@ -142,7 +142,7 @@ def vae_encode(vae: AutoencoderKL, images: torch.Tensor) -> torch.Tensor:
             # diffusers pads (0, 1) bottom/right before the stride-2 conv
             x = stage.downsamplers[0].conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
     x = enc.mid_block(x)
-    x = enc.conv_out(F.silu(enc.conv_norm_out(x)))
+    x = enc.conv_out(enc.conv_norm_out(x, silu=True))
     mean = vae.quant_conv(x)[..., : vae.cfg.latent_channels]
     return mean * vae.cfg.scaling_factor
 
@@ -158,7 +158,7 @@ def vae_decode(vae: AutoencoderKL, latents: torch.Tensor) -> torch.Tensor:
         if hasattr(stage, "upsamplers"):
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
             x = stage.upsamplers[0].conv(x)
-    return dec.conv_out(F.silu(dec.conv_norm_out(x)))
+    return dec.conv_out(dec.conv_norm_out(x, silu=True))
 
 
 def vae_decode_video(vae: AutoencoderKL, latents: torch.Tensor, segment: int = 16,

@@ -5,7 +5,8 @@ Each source is one shared library with a plain C interface, compiled by
 ``.gitignore``). The library name carries a hash of the source, of the
 headers under ``csrc`` that it includes, and of the flags, so an edited source
 or header is rebuilt and a stale library is never loaded. Nothing is built or
-loaded at import time.
+loaded at import time; the first load builds every source not built yet, all
+nvcc at once, so a cold start waits for the slowest source, not their sum.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -94,10 +96,11 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first (with every
+    other source not built yet) if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
+        build(SOURCES)
         with _lock:
             lib = _libs.get(name)
             if lib is None:

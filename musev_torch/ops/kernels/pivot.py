@@ -28,10 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, records
-
-_ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
-VEC_BYTES = 16  # one thread moves one 16-byte vector of a row
+from . import _build, check_rows, records
 
 
 def pivot_rows_plain(
@@ -48,24 +45,6 @@ def pivot_rows_plain(
 def unpivot_rows_plain(y: torch.Tensor) -> torch.Tensor:
     """(b, HW, T, C) -> contiguous (b, T, HW, C)."""
     return y.transpose(1, 2).contiguous()
-
-
-def _check_kernel_input(name: str, x: torch.Tensor) -> int:
-    """The element size of ``x``; raises on what the kernel does not take."""
-    if x.dtype not in _ELEM_BYTES:
-        raise TypeError(f"{name} kernel takes bfloat16 or float32, got {x.dtype}")
-    elem = _ELEM_BYTES[x.dtype]
-    vec = VEC_BYTES // elem
-    if x.shape[-1] % vec:
-        raise ValueError(f"{name} kernel: C={x.shape[-1]} is not a multiple of {vec}")
-    if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:-1]) or x.data_ptr() % VEC_BYTES:
-        raise ValueError(
-            f"{name} kernel: strides {x.stride()} must leave C contiguous and the "
-            f"rows {VEC_BYTES}-byte aligned"
-        )
-    if x.numel() // vec >= 2**32 - 256:
-        raise ValueError(f"{name} kernel: {x.numel()} elements are too many for one launch")
-    return elem
 
 
 def pivot_rows(
@@ -99,7 +78,7 @@ def _pivot(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[torch
     if x.device.type == "cpu":
         return pivot_rows_plain(x, scale, shift)
     b, t, hw, c = x.shape
-    elem = _check_kernel_input("pivot_rows", x)
+    elem = check_rows("pivot_rows", x)
     if scale is not None:
         for name, s in (("scale", scale), ("shift", shift)):
             if s.stride(-1) != 1 or s.stride(0) % 4 or s.stride(1) % 4 or s.data_ptr() % 16:
@@ -146,7 +125,7 @@ def _unpivot(y: torch.Tensor) -> torch.Tensor:
     """K7 on a CUDA tensor, the plain version on a CPU tensor."""
     if y.device.type == "cpu":
         return unpivot_rows_plain(y)
-    elem = _check_kernel_input("unpivot_rows", y)
+    elem = check_rows("unpivot_rows", y)
     b, hw, t, c = y.shape
     out = torch.empty((b, t, hw, c), dtype=y.dtype, device=y.device)
     if out.numel() == 0:

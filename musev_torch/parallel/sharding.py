@@ -106,9 +106,9 @@ class TPGroupNorm(GroupNorm):
         self.lo, self.group = lo, group
         self.whole = lo % self.cg == 0 and c % self.cg == 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         if self.whole:
-            return group_norm(x, self.weight, self.bias, x.shape[-1] // self.cg, self.eps)
+            return group_norm(x, self.weight, self.bias, x.shape[-1] // self.cg, self.eps, silu)
         n, c = x.shape[0], x.shape[-1]
         xf = x.reshape(n, -1, c).float()
         gid = (torch.arange(c, device=x.device) + self.lo) // self.cg
@@ -120,7 +120,8 @@ class TPGroupNorm(GroupNorm):
         inv = torch.rsqrt(torch.clamp(s2 / count - mean * mean, min=0.0) + self.eps)
         scale = (inv @ onehot.t()) * self.weight.float()
         shift = self.bias.float() - (mean @ onehot.t()) * scale
-        return torch.addcmul(shift[:, None], xf, scale[:, None]).reshape(x.shape).to(x.dtype)
+        y = torch.addcmul(shift[:, None], xf, scale[:, None]).reshape(x.shape).to(x.dtype)
+        return F.silu(y) if silu else y
 
 
 def _slice_(mod: nn.Module, name: str, dim: int, rank: int, n: int) -> None:

@@ -11,7 +11,11 @@ under 1e-2 and the largest error under 2e-2 of the largest output. The
 pivots move bits and must match exactly; the fused GroupNorm apply rounds
 its float32 product separately where the plain version may fuse it with the
 add, so it may differ by one bf16 ulp of the output plus one float32 ulp of
-the product.
+the product. The norm kernels (K8, K9) are held against their composition
+run in float64 on the same input: within one ulp of the output type at the
+exact result, which covers the one rounding of their store, plus 2^-16 of
+the magnitude of the terms summed (x * scale, the bias and mean * scale:
+their float32 statistics and affine).
 """
 
 import pytest
@@ -27,6 +31,14 @@ from musev_torch.ops.kernels.flash_attention import (
 )
 from musev_torch.ops.kernels.flash_stream import flash_stream
 from musev_torch.ops.kernels.flash_stream import plan as stream_plan
+from musev_torch.ops.kernels.norm import (
+    group_norm,
+    group_norm_plain,
+    group_norm_scale_shift,
+    group_norm_scale_shift_plain,
+    layer_norm,
+    layer_norm_plain,
+)
 from musev_torch.ops.kernels.pivot import (
     pivot_rows,
     pivot_rows_plain,
@@ -446,3 +458,255 @@ def test_cuda_wrappers_under_autograd_carry_grad_fn(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 1, 0, 0]
     with pytest.raises(NotImplementedError, match="no backward"):
         flash_stream(q, k, v)
+
+
+# GroupNorm sites (n, m, c, groups) of the paths: the UNet's frame rows at
+# L0-L3 and its up blocks' concatenated widths (960 at 72^2, 1920 at 36^2,
+# 2560 at 18^2), the temporal conv's video GroupNorm (6 window rows, 13
+# frames), the T2I calls' 2 rows, the VAE decode's 16-frame segment, and the
+# tensor-parallel slices of 80 and 40 channels (groups of 10)
+GN_SITES = [(78, 5184, 320, 32), (78, 1296, 640, 32), (78, 324, 1280, 32), (78, 81, 1280, 32),
+            (78, 5184, 960, 32), (78, 1296, 1920, 32), (78, 324, 2560, 32),
+            (6, 13 * 5184, 320, 32), (2, 5184, 320, 32), (2, 81, 1280, 32),
+            (16, 576 * 576, 128, 32), (78, 5184, 80, 8), (78, 5184, 40, 4)]
+# LayerNorm sites (rows, c): the UNet's transformers at 320 / 640 / 1280, CLIP
+# text (2 x 77 at 768), CLIP vision ViT-H (257 at 1280) and 1024 wide rows
+LN_SITES = [(78 * 5184, 320), (78 * 1296, 640), (78 * 324, 1280), (2 * 77, 768), (257, 1280),
+            (2 * 257, 1024)]
+NORM_SLACK = 2.0**-16
+
+
+def _norm_params(c, device, dtype, gen):
+    w = (1 + 0.5 * torch.randn(c, device=device, generator=gen)).to(dtype)
+    b = (0.5 * torch.randn(c, device=device, generator=gen)).to(dtype)
+    return w, b
+
+
+def assert_norm_close(got, want, mag):
+    """Within one bf16 ulp at the float64 result plus NORM_SLACK of ``mag``,
+    the magnitude of the terms summed."""
+    bound = _ulp(want, 7) + NORM_SLACK * mag
+    err = (got.double() - want).abs()
+    bad = (~(err <= bound)).nonzero()[:5]
+    assert len(bad) == 0, [(tuple(i), got[tuple(i)].item(), want[tuple(i)].item(),
+                            bound[tuple(i)].item()) for i in bad.tolist()]
+
+
+def group_norm_scale_shift_f64(x, w, b, groups):
+    """GroupNorm's (N, C) scale and shift in float64."""
+    n, c = x.shape[0], x.shape[-1]
+    xd = x.reshape(n, -1, groups, c // groups).double()
+    var, mean = torch.var_mean(xd, dim=(1, 3), correction=0, keepdim=True)
+    scale = torch.rsqrt(var + 1e-5) * w.double().view(1, 1, groups, -1)
+    shift = b.double().view(1, 1, groups, -1) - mean * scale
+    return scale.reshape(n, c), shift.reshape(n, c)
+
+
+def check_group_norm(x, w, b, groups, silu):
+    """K8 against its composition in float64, twice, bit for bit between the
+    two runs."""
+    n, c = x.shape[0], x.shape[-1]
+    got = group_norm(x, w, b, groups, 1e-5, silu=silu)
+    assert torch.equal(got, group_norm(x, w, b, groups, 1e-5, silu=silu))
+    xd = x.reshape(n, -1, c).double()
+    scale, shift = group_norm_scale_shift_f64(x, w, b, groups)
+    want = (xd * scale[:, None] + shift[:, None]).reshape(x.shape)
+    # the terms summed: x * scale, and the bias and mean * scale that make the shift
+    terms = b.double().abs() + (b.double() - shift).abs()
+    mag = (xd.abs() * scale[:, None].abs() + terms[:, None]).reshape(x.shape)
+    del xd
+    if silu:
+        want = torch.nn.functional.silu(want)
+    assert_norm_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("n,m,c,groups", GN_SITES)
+def test_cuda_group_norm_matches_plain(cuda, n, m, c, groups, silu):
+    """K8 at every GroupNorm shape the cells launch, with SiLU on and off:
+    the exact result's bf16 rounding, the same bits on every run, one
+    launch counted and no plain call."""
+    g = torch.Generator(device=cuda).manual_seed(n * m + c)
+    x = (0.3 + torch.randn(n, m, c, device=cuda, generator=g)).bfloat16()
+    w, b = _norm_params(c, cuda, torch.bfloat16, g)
+    counter = "silu_launches" if silu else "launches"
+    before = (getattr(group_norm, counter), group_norm.plain_calls)
+    check_group_norm(x, w, b, groups, silu)
+    assert (getattr(group_norm, counter), group_norm.plain_calls) == (before[0] + 2, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided video", "float32 weights"])
+def test_cuda_group_norm_layouts_and_dtypes(cuda, case):
+    """K8 on a strided 5-D view (the window batch's rows of a wider video),
+    and with float32 weights (a float32 master under autocast)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if case == "strided video":
+        wide = torch.randn(6, 14, 18, 18, 320, device=cuda, generator=g).bfloat16()
+        x, wdtype = wide[:, 1:], torch.bfloat16
+    else:
+        x = torch.randn(6, 13, 36, 36, 640, device=cuda, generator=g).bfloat16()
+        wdtype = torch.float32
+    w, b = _norm_params(x.shape[-1], cuda, wdtype, g)
+    for silu in (False, True):
+        check_group_norm(x, w, b, 32, silu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True])
+def test_cuda_group_norm_is_stable_where_the_mean_dwarfs_the_spread(cuda, silu):
+    """Mean 1024 and spread about 1 (1.5 % of the elements 8 off the mean,
+    bf16's spacing at 1024): K8 against float64 within the rounding of its
+    store. A one-pass float32 variance misses by several percent here."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    n, m, c = 4, 5184, 320
+    flip = torch.rand(n, m, c, device=cuda, generator=g) < 0.015
+    sign = torch.randint(0, 2, (n, m, c), device=cuda, generator=g) * 2 - 1
+    x = (1024.0 + 8.0 * flip * sign).bfloat16()
+    w, b = _norm_params(c, cuda, torch.bfloat16, g)
+    check_group_norm(x, w, b, 32, silu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c,groups", [(6, 13 * 5184, 320, 32), (2, 81, 1280, 32),
+                                          (78, 5184, 80, 8)])
+def test_cuda_group_norm_scale_shift_matches_plain(cuda, n, m, c, groups):
+    """K8's statistics alone (the temporal transformer's scale and shift for
+    K6) against float64, within NORM_SLACK."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(n, 13, m // 13, c, device=cuda, generator=g).bfloat16() if m % 13 == 0 \
+        else torch.randn(n, m, c, device=cuda, generator=g).bfloat16()
+    w, b = _norm_params(c, cuda, torch.bfloat16, g)
+    before = group_norm_scale_shift.launches
+    scale, shift = group_norm_scale_shift(x, w, b, groups, 1e-5)
+    assert group_norm_scale_shift.launches == before + 1
+    want_scale, want_shift = group_norm_scale_shift_f64(x, w, b, groups)
+    assert scale.dtype == shift.dtype == torch.float32 and scale.shape == (n, c)
+    assert ((scale - want_scale).abs() <= NORM_SLACK * want_scale.abs()).all()
+    mag = b.double().abs() + (b.double() - want_shift).abs()
+    assert ((shift - want_shift).abs() <= NORM_SLACK * mag).all()
+
+
+def check_layer_norm(x, w, b):
+    """K9 against LayerNorm in float64."""
+    c = x.shape[-1]
+    got = layer_norm(x, w, b, 1e-5)
+    xd = x.double()
+    var, mean = torch.var_mean(xd, dim=-1, correction=0, keepdim=True)
+    rstd = torch.rsqrt(var + 1e-5)
+    mag = (xd.abs() + mean.abs()) * rstd * w.double().abs() + b.double().abs()
+    want = torch.nn.functional.layer_norm(xd, (c,), w.double(), b.double(), 1e-5)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert_norm_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", LN_SITES)
+def test_cuda_layer_norm_matches_plain(cuda, rows, c):
+    """K9 at the UNet's, CLIP's and the wide rows' LayerNorm widths: one
+    launch counted, no plain call, the exact result's bf16 rounding."""
+    g = torch.Generator(device=cuda).manual_seed(rows + c)
+    x = (0.3 + torch.randn(rows, c, device=cuda, generator=g)).bfloat16()
+    w, b = _norm_params(c, cuda, torch.bfloat16, g)
+    before = (layer_norm.launches, layer_norm.plain_calls)
+    check_layer_norm(x, w, b)
+    assert (layer_norm.launches, layer_norm.plain_calls) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided rows", "float32 weights", "C = 2048", "large mean"])
+def test_cuda_layer_norm_layouts_dtypes_and_a_large_mean(cuda, case):
+    """K9 on a view with a row stride (one half of a fused projection), with
+    float32 weights (a float32 master under autocast), at its widest C (8
+    vectors a lane), and on rows of mean 1024 with a spread of about 1."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    wdtype = torch.bfloat16
+    if case == "strided rows":
+        x = torch.randn(4, 300, 2 * 640, device=cuda, generator=g).bfloat16()[..., 640:]
+    elif case == "float32 weights":
+        x, wdtype = torch.randn(1000, 1280, device=cuda, generator=g).bfloat16(), torch.float32
+    elif case == "C = 2048":
+        x = torch.randn(1000, 2048, device=cuda, generator=g).bfloat16()
+    else:
+        flip = torch.rand(2000, 320, device=cuda, generator=g) < 0.015
+        sign = torch.randint(0, 2, (2000, 320), device=cuda, generator=g) * 2 - 1
+        x = (1024.0 + 8.0 * flip * sign).bfloat16()
+    w, b = _norm_params(x.shape[-1], cuda, wdtype, g)
+    check_layer_norm(x, w, b)
+
+
+@pytest.mark.cuda
+def test_cuda_norms_raise_instead_of_falling_back(cuda):
+    """A dtype or C the kernels do not take raises on CUDA (x other than
+    bf16, float32 x included); so do mismatched weights, unaligned rows and
+    the statistics of an empty x."""
+    w, b = (torch.ones(320, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    for dtype in (torch.float16, torch.float32):
+        bad = torch.zeros(2, 10, 320, device=cuda, dtype=dtype)
+        with pytest.raises(TypeError, match="bfloat16"):
+            group_norm(bad, w, b, 32, 1e-5)
+        with pytest.raises(TypeError, match="bfloat16"):
+            group_norm_scale_shift(bad, w, b, 32, 1e-5)
+        with pytest.raises(TypeError, match="bfloat16"):
+            layer_norm(bad, w, b)
+    empty = torch.zeros(2, 0, 320, device=cuda, dtype=torch.bfloat16)
+    assert group_norm(empty, w, b, 32, 1e-5, silu=True).shape == empty.shape
+    with pytest.raises(ValueError, match="empty"):
+        group_norm_scale_shift(empty, w, b, 32, 1e-5)
+    odd = torch.zeros(2, 10, 12, device=cuda, dtype=torch.bfloat16)
+    w12, b12 = (torch.ones(12, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        group_norm(odd, w12, b12, 4, 1e-5, silu=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm(odd, w12, b12)
+    x = torch.zeros(2, 10, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not divisible"):
+        group_norm(x, w, b, 24, 1e-5)
+    with pytest.raises(ValueError, match="weight"):
+        group_norm(x, w[:160], b, 32, 1e-5)
+    with pytest.raises(ValueError, match="bias"):
+        layer_norm(x, w, b.float())
+    wide = torch.zeros(2, 10, 2056, device=cuda, dtype=torch.bfloat16)
+    w_wide = torch.ones(2056, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="more than 2048"):
+        layer_norm(wide, w_wide, w_wide)
+    with pytest.raises(ValueError, match="aligned"):
+        layer_norm(torch.zeros(2, 10, 336, device=cuda, dtype=torch.bfloat16)[..., 4:324], w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
+def test_cuda_norms_under_autograd_launch_and_backpropagate(cuda, wdtype):
+    """Under autograd on CUDA each norm launches its kernel (counted, no
+    plain call) inside its ``autograd.Function``: the output has a grad_fn,
+    equals the launch without autograd bit for bit, and gives x, weight and
+    bias autograd's gradients through the plain composition, on bf16 weights
+    and on float32 ones (training's masters under autocast)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(2, 64, 320, device=cuda, generator=g).bfloat16().requires_grad_(True)
+    w, b = (p.to(wdtype).requires_grad_(True) for p in _norm_params(320, cuda, torch.float32, g))
+    calls = [
+        ((group_norm, "silu_launches"), lambda *a: group_norm(*a, 32, 1e-5, silu=True),
+         lambda *a: group_norm_plain(*a, 32, 1e-5, silu=True)),
+        ((group_norm_scale_shift, "launches"), lambda *a: group_norm_scale_shift(*a, 32, 1e-5),
+         lambda *a: group_norm_scale_shift_plain(*a, 32, 1e-5)),
+        ((layer_norm, "launches"), lambda *a: layer_norm(*a, 1e-5),
+         lambda *a: layer_norm_plain(*a, 1e-5)),
+    ]
+    for (fn, counter), call, plain in calls:
+        before = (getattr(fn, counter), fn.plain_calls)
+        out = call(x, w, b)
+        assert (getattr(fn, counter), fn.plain_calls) == (before[0] + 1, before[1])
+        outs = out if isinstance(out, tuple) else (out,)
+        with torch.no_grad():
+            again = call(x, w, b)
+        for o, a in zip(outs, again if isinstance(again, tuple) else (again,)):
+            assert o.grad_fn is not None and torch.equal(o, a)
+        ups = [torch.randn(o.shape, device=cuda, generator=g).to(o.dtype) for o in outs]
+        got = torch.autograd.grad(outs, (x, w, b), ups)
+        want = plain(x, w, b)
+        want = torch.autograd.grad(want if isinstance(want, tuple) else (want,), (x, w, b), ups)
+        for got_, want_ in zip(got, want):
+            assert got_.dtype == want_.dtype
+            torch.testing.assert_close(got_, want_)
